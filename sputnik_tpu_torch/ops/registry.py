@@ -1,0 +1,86 @@
+"""Kernel-variant registry with ``can_implement`` first-fit dispatch.
+
+Port of ``sputnik_tpu/ops/registry.py``: per op, an ordered list of
+``(can_implement, launch)`` pairs; dispatch launches the first variant that
+can implement the problem, ``variant=`` picks one by name, and a problem no
+variant takes raises ``NotImplementedError`` with the shapes. There is no
+autotune cache yet.
+
+:func:`forced_variant` makes every dispatch inside a ``with`` block use one
+named variant, so a whole model can run on the plain versions to be
+compared with its kernels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging
+from typing import Callable, Dict, List, Optional
+
+__all__ = ["KernelVariant", "register", "dispatch", "dispatch_name", "forced_variant"]
+
+# Enable with logging.getLogger("sputnik_tpu_torch").setLevel(logging.DEBUG).
+log = logging.getLogger("sputnik_tpu_torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelVariant:
+    name: str
+    can_implement: Callable[..., bool]
+    launch: Callable
+
+
+_REGISTRY: Dict[str, List[KernelVariant]] = {}
+_FORCED: List[str] = []  # innermost forced_variant() name last
+
+
+def register(op: str, name: str, can_implement, launch) -> KernelVariant:
+    v = KernelVariant(name=name, can_implement=can_implement, launch=launch)
+    _REGISTRY.setdefault(op, []).append(v)
+    return v
+
+
+@contextlib.contextmanager
+def forced_variant(name: str):
+    """Dispatch every op to the variant called ``name`` inside the block
+    (an explicit ``variant=`` argument still wins)."""
+    _FORCED.append(name)
+    try:
+        yield
+    finally:
+        _FORCED.pop()
+
+
+def _select(op: str, args, kwargs, variant: Optional[str] = None) -> KernelVariant:
+    variants = _REGISTRY.get(op, [])
+    if variant is None and _FORCED:
+        variant = _FORCED[-1]
+    if variant is not None:
+        for v in variants:
+            if v.name == variant:
+                return v
+        raise ValueError(f"{op}: no variant named {variant!r}")
+    for v in variants:
+        if v.can_implement(*args, **kwargs):
+            if log.isEnabledFor(logging.DEBUG):
+                log.debug("%s: dispatching %s (shapes=%s)", op, v.name,
+                          [tuple(getattr(a, "shape", ())) for a in args])
+            return v
+    shapes = [getattr(a, "shape", None) for a in args]
+    devices = [str(getattr(a, "device", None)) for a in args]
+    raise NotImplementedError(
+        f"{op}: no registered kernel variant can implement the problem; "
+        f"arg shapes={shapes}, devices={devices}, "
+        f"kwargs={ {k: v for k, v in kwargs.items() if not hasattr(v, 'shape')} }, "
+        f"variants tried={[v.name for v in variants]}"
+    )
+
+
+def dispatch(op: str, *args, variant: Optional[str] = None, **kwargs):
+    return _select(op, args, kwargs, variant).launch(*args, **kwargs)
+
+
+def dispatch_name(op: str, *args, variant: Optional[str] = None, **kwargs) -> str:
+    """Name of the variant :func:`dispatch` would pick, without launching."""
+    return _select(op, args, kwargs, variant).name
