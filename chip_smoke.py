@@ -6,13 +6,18 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the two CUDA kernels from csrc/ and print the seconds.
+   versions; build the three CUDA libraries from csrc/ (one nvcc each, all
+   started together) and print the seconds.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
    attention shapes (T = 1024 and 2048, window 4, d_head 128, 8 heads), DSD at the
    4096^2 / 25% headline shape, a random BSR with empty block-rows and
-   unordered column indices, a random 25% SDD topology; bf16 (fp32 and
-   bf16 outputs) and fp32.
+   unordered column indices, a random 25% SDD topology; the three flash
+   kernels (forward with lse, dQ, dK/dV) at the training slice's shape
+   (8 heads, T = 2048, causal band of window 4), on a random non-causal
+   topology with an empty block-row and an empty block-column, and with
+   rectangular K/V (T = 1024, Tk = 2048); bf16 (fp32 and bf16 outputs) and
+   fp32.
 3. The serving slice: the sparse LM at the serving benchmark's width
    (d_model 1024, 8 heads, 8 experts, d_ff 2048, vocab 8192, 4 layers,
    bf16, random weights from seed 0) serves 4 requests of 1024-token
@@ -24,9 +29,22 @@ Phases (any failure raises and the script exits non-zero):
    the kernels against the plain versions (registry.forced_variant), max
    |diff| <= 1e-3;
    then four band-decode steps against the full sparse forward, <= 2e-3.
-5. Kernel and plain-version times at the slice's shapes (CUDA events, 10
+5. Kernel and plain-version times at the slices' shapes (CUDA events, 10
    warm-up and 100 timed iterations): device time from a CUDA graph of the
-   100 calls, and the eager per-call time with the host's cost.
+   100 calls, and the eager per-call time with the host's cost; the flash
+   kernels at 8 heads, T = 2048, d_head 128, bf16, through their wrappers.
+6. The training slice, bf16, the same model: 5 Adam steps (lr 3e-3) on a
+   fixed batch of 4 sequences of 2048 tokens (loss = mean of the 4
+   lm_loss), once with fused_attention (flash kernels) and once without
+   (SDD -> softmax -> DSD and their VJPs). Checks finite losses, the last
+   below the first, parameters, gradients and Adam state on the card, and
+   the exact launches per step: fused 16 of each flash kernel and no
+   sparse kernel; unfused 64 bsr_dsd_stream and 32 bsr_sdd and no flash
+   kernel. Prints the wall time per step (informational).
+7. The same model in fp32 (TF32 off), both routes: one backward of the
+   batch loss through the kernels against the plain versions
+   (registry.forced_variant), every parameter's gradient within
+   1e-3 * max|g|; prints the worst parameter.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -34,6 +52,8 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -44,6 +64,7 @@ import numpy as np
 import torch
 
 from sputnik_tpu_torch.kernels import _build, bsr_dsd, bsr_sdd
+from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.ops import registry
@@ -56,6 +77,8 @@ SERVE = tr.TransformerConfig(
     d_ff=2048, n_layers=4, vocab=8192, dtype=torch.bfloat16,
 )
 N_REQUESTS, PROMPT, N_NEW = 4, 1024, 32
+TRAIN_BATCH, TRAIN_STEPS, LR = 4, 5, 3e-3
+FLASH = tuple(fm.LAUNCHES)  # flash_mha_fwd, flash_mha_dq, flash_mha_dkv
 DEV = torch.device("cuda")
 
 
@@ -167,6 +190,64 @@ def kernel_cases(rng, errors):
         sdd_case(f"sdd random 25% K=512 ta={ta:d} tb={tb:d}", x, y, topo, ta, tb)
 
 
+def flash_cases(rng, errors):
+    """The flash forward (out and lse), dQ and dK/dV kernels against their
+    plain versions on the same inputs; the backward passes of both read the
+    plain forward's lse and dvec. v and dO are scaled by 1/2 so that every
+    output is of order one."""
+
+    def case(name, topo, h, t, tk, causal, dtype):
+        q, k = randn(rng, (h, t, 128), dtype), randn(rng, (h, tk, 128), dtype)
+        v, do = randn(rng, (h, tk, 128), dtype, 0.5), randn(rng, (h, t, 128), dtype, 0.5)
+        kw = dict(causal=causal, scale=128 ** -0.5)
+        errs = []
+        for out_dtype in dict.fromkeys((torch.float32, dtype)):
+            out, lse = fm.fwd(q, k, v, topo, out_dtype=out_dtype, **kw)
+            ref_out, ref_lse = fm.fwd_reference(q, k, v, topo, out_dtype=out_dtype, **kw)
+            dvec = (do.float() * ref_out.float()).sum(-1)
+            args = (q, k, v, do, ref_lse, dvec, topo)
+            pairs = {
+                "flash_mha_fwd": [(out, ref_out), (lse, ref_lse)],
+                "flash_mha_dq": [(fm.dq(*args, out_dtype=out_dtype, **kw),
+                                  fm.dq_reference(*args, out_dtype=out_dtype, **kw))],
+                "flash_mha_dkv": list(zip(fm.dkv(*args, out_dtype=out_dtype, **kw),
+                                          fm.dkv_reference(*args, out_dtype=out_dtype, **kw))),
+            }
+            torch.cuda.synchronize()
+            for kname, results in pairs.items():
+                err = 0.0
+                for got, want in results:
+                    check(got.shape == want.shape, f"{name} {kname}: shape {tuple(got.shape)}")
+                    check(bool(torch.isfinite(got.float()).all()), f"{name} {kname}: non-finite output")
+                    check(float(want.float().abs().max()) > 0, f"{name} {kname}: plain output is all zero")
+                    err = max(err, float((got.float() - want.float()).abs().max()))
+                check(err <= ATOL, f"{name} {kname} out={out_dtype}: max |kernel - plain| = {err} > {ATOL}")
+                errors[kname] = max(errors.get(kname, 0.0), err)
+                errs.append(f"{kname[10:]} {err:.3e}")
+            errs[-3] = f"{str(out_dtype).split('.')[-1]} out: {errs[-3]}"
+        print(f"  flash {name:<36} {str(dtype).split('.')[-1]:<9} max|kernel-plain|: {', '.join(errs)}",
+              flush=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        h = SERVE.n_heads
+        topo = attention.causal_block_topology(SERVE.seq_len, window_blocks=SERVE.window_blocks,
+                                               dtype=dtype, device=DEV)
+        case(f"slice H={h} T={SERVE.seq_len} causal band", topo, h, SERVE.seq_len, SERVE.seq_len, True, dtype)
+        # 8 x 8 blocks at ~40%, unordered within rows; block-row 2 and
+        # block-column 5 empty.
+        mask = rng.random((8, 8)) < 0.4
+        mask[2, :] = False
+        mask[:, 5] = False
+        rows, cols = np.nonzero(mask)
+        cols = np.concatenate([rng.permutation(cols[rows == r]) for r in range(8)])
+        topo = testing.bsr_from_blocks(1024, 1024, rows, cols, np.zeros((len(rows), 128, 128)),
+                                       dtype=dtype, device=DEV)
+        check(topo.min_row_nnz == 0 and topo.min_col_nnz == 0, "the random topology lost its empty row/column")
+        case("random non-causal empty row+col T=1024", topo, 4, 1024, 1024, False, dtype)
+        topo = rand_bsr(rng, 1024, 2048, 0.3, dtype, unordered=True)
+        case("rectangular T=1024 Tk=2048", topo, 4, 1024, 2048, False, dtype)
+
+
 # ----------------------------------------------------------------- phase 5 --
 def time_ms(fn, warmup=10, iters=100):
     """(device, call): milliseconds per call. ``device`` replays the ``iters``
@@ -196,6 +277,95 @@ def time_ms(fn, warmup=10, iters=100):
     return start.elapsed_time(stop) / iters, call
 
 
+# ------------------------------------------------------------- phases 6, 7 --
+def reset_launches() -> None:
+    bsr_dsd.LAUNCHES = bsr_sdd.LAUNCHES = 0
+    fm.LAUNCHES.update(dict.fromkeys(FLASH, 0))
+
+
+def launch_counts() -> dict:
+    return {"bsr_dsd_stream": bsr_dsd.LAUNCHES, "bsr_sdd": bsr_sdd.LAUNCHES, **fm.LAUNCHES}
+
+
+def expected_train_launches(fused: bool, n_seq: int) -> dict:
+    """Launches of one loss backward over ``n_seq`` sequences. Fused: one of
+    each flash kernel per layer and sequence. Unfused, by ops/autodiff.py:
+    the forward runs 1 SDD + 1 DSD, the backward 3 DSD/DDS launches (DSD's
+    dB, SDD's dA and dB) + 1 SDD (DSD's dA) per layer and sequence."""
+    per = SERVE.n_layers * n_seq
+    if fused:
+        return {"bsr_dsd_stream": 0, "bsr_sdd": 0, **dict.fromkeys(FLASH, per)}
+    return {"bsr_dsd_stream": 4 * per, "bsr_sdd": 2 * per, **dict.fromkeys(FLASH, 0)}
+
+
+def batch_loss(lm, batch, cfg, topos):
+    return sum(tr.lm_loss(lm, seq, cfg, topos) for seq in batch) / len(batch)
+
+
+def train_steps(fused: bool, batch, name_limit: str) -> dict:
+    """TRAIN_STEPS Adam steps of the bf16 model on ``batch``; returns the
+    launch counts of all steps together."""
+    cfg = dataclasses.replace(SERVE, fused_attention=fused)
+    lm = tr.init_lm_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    topos = tr.lm_topologies(cfg, device=DEV)
+    opt = torch.optim.Adam(lm.parameters(), lr=LR)
+    losses, walls = [], []
+    total = dict.fromkeys(launch_counts(), 0)
+    want = expected_train_launches(fused, len(batch))
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = batch_loss(lm, batch, cfg, topos)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        counts = launch_counts()
+        check(counts == want, f"fused={fused}: launches per step {counts}, expected {want}")
+        total = {k: total[k] + counts[k] for k in total}
+        losses.append(loss.item())
+    check(all(np.isfinite(losses)), f"fused={fused}: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"fused={fused}: the loss did not fall: {losses}")
+    check(all(p.is_cuda and p.grad is not None and p.grad.is_cuda for p in lm.parameters()),
+          "a parameter or gradient is not on the card")
+    check(all(v.is_cuda for st in opt.state.values() for v in st.values() if torch.is_tensor(v) and v.ndim),
+          "an Adam state tensor is not on the card")
+    print(f"fused_attention={fused}: losses {[round(x, 4) for x in losses]}; launches per step "
+          f"{ {k: v for k, v in want.items() if v} }; wall per step "
+          f"{[round(w, 3) for w in walls]} s (first includes warm-up; informational) on {name_limit}",
+          flush=True)
+    return total
+
+
+def fp32_grads_against_plain(fused: bool, batch) -> None:
+    """One backward of the fp32 model through the kernels and one through
+    the plain versions; every parameter's gradient within 1e-3 * max|g|."""
+    cfg = dataclasses.replace(SERVE, dtype=torch.float32, fused_attention=fused)
+    lm = tr.init_lm_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    topos = tr.lm_topologies(cfg, device=DEV)
+    grads, losses = [], []
+    for plain in (False, True):
+        lm.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        reset_launches()
+        with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+            loss = batch_loss(lm, batch, cfg, topos)
+            loss.backward()
+        torch.cuda.synchronize()
+        want = dict.fromkeys(launch_counts(), 0) if plain else expected_train_launches(fused, len(batch))
+        check(launch_counts() == want, f"fp32 fused={fused} plain={plain}: launches {launch_counts()}")
+        losses.append(loss.item())
+        grads.append({n: p.grad.detach().clone() for n, p in lm.named_parameters()})
+    worst = max((float((grads[0][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30), n)
+                for n, g in grads[1].items())
+    print(f"fp32 fused_attention={fused}: loss kernels {losses[0]:.6f} plain {losses[1]:.6f}; "
+          f"worst parameter {worst[1]}: max |kernels - plain| = {worst[0]:.3e} * max|g|", flush=True)
+    check(all(torch.isfinite(g).all() for g in grads[0].values()), "non-finite fp32 gradient")
+    check(worst[0] <= 1e-3, f"fp32 gradients of {worst[1]} differ by {worst[0]:.3e} * max|g| > 1e-3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -207,14 +377,16 @@ def main() -> int:
     print(f"card: {name_limit}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     start = time.perf_counter()
-    bsr_dsd._kernel()
-    bsr_sdd._kernel()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
+        for built in [pool.submit(f) for f in (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib)]:
+            built.result()
     print(f"kernels built and loaded in {time.perf_counter() - start:.1f} s "
           f"(per library: {_build.build_seconds})", flush=True)
 
     print("== phase 2: kernels against their plain versions", flush=True)
     errors: dict = {}
     kernel_cases(np.random.default_rng(0), errors)
+    flash_cases(np.random.default_rng(3), errors)
 
     print("== phase 3: serving slice", flush=True)
     lm = tr.init_lm_params(SERVE, torch.Generator(device=DEV).manual_seed(0), device=DEV)
@@ -227,13 +399,13 @@ def main() -> int:
     check(all(c[k].is_cuda for c in caches for k in ("k", "v")), "a cache is not on the card")
     del caches
     torch.cuda.synchronize()
-    bsr_dsd.LAUNCHES = bsr_sdd.LAUNCHES = 0
+    reset_launches()
     tokens = tr.lm_generate_batched(lm, prompts, SERVE, N_NEW)
     torch.cuda.synchronize()
-    launches = {"bsr_dsd_stream": bsr_dsd.LAUNCHES, "bsr_sdd": bsr_sdd.LAUNCHES}
+    launches = launch_counts()
     expected = SERVE.n_layers * N_REQUESTS
-    check(launches == {"bsr_dsd_stream": expected, "bsr_sdd": expected},
-          f"kernel launches {launches}, expected {expected} of each")
+    check(launches == {"bsr_dsd_stream": expected, "bsr_sdd": expected, **dict.fromkeys(FLASH, 0)},
+          f"kernel launches {launches}, expected {expected} of each sparse kernel and no flash kernel")
     check(tuple(tokens.shape) == (N_REQUESTS, N_NEW), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < SERVE.vocab)).all()), "token id out of range")
     start = time.perf_counter()
@@ -247,7 +419,7 @@ def main() -> int:
     torch.cuda.synchronize()
     prefill = time.perf_counter() - start
     print(f"{n_params / 1e6:.1f} M parameters; {N_REQUESTS} requests x {N_NEW} tokens; "
-          f"launches {launches}", flush=True)
+          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
     print(f"first tokens: {tokens[:, :8].tolist()}", flush=True)
     print(f"served in {wall:.3f} s wall: {N_REQUESTS * N_NEW / wall:.1f} generated tokens/s "
           f"(prefill included; informational) on {name_limit}", flush=True)
@@ -280,7 +452,8 @@ def main() -> int:
     # decode == forward contract), with a capacity that drops no token.
     full_cfg = dataclasses.replace(cfg32, capacity=cfg32.seq_len)
     seq = torch.from_numpy(np.random.default_rng(2).integers(0, SERVE.vocab, cfg32.seq_len)).to(DEV)
-    full, _ = tr.lm_forward(lm32, seq, full_cfg)
+    with torch.no_grad():
+        full, _ = tr.lm_forward(lm32, seq, full_cfg)
     caches, _ = tr.lm_prefill(lm32, seq[:PROMPT], full_cfg, cfg32.seq_len)
     decode_err = 0.0
     for pos in range(PROMPT, PROMPT + 4):
@@ -314,10 +487,57 @@ def main() -> int:
     flop = 2 * a.nnz_blocks * 128 * 128 * 4096
     print(f"  bsr_dsd_stream  4096^2 25% N=4096 bf16: kernel {ms * 1e3:.2f} us device "
           f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain * 1e3:.2f} us device", flush=True)
+    # The flash kernels at the training slice's attention shape, through
+    # their wrappers (not autograd); the backward reads the kernel's lse.
+    t = SERVE.seq_len
+    topo = attention.causal_block_topology(t, window_blocks=SERVE.window_blocks, dtype=bf16,
+                                           device=DEV).with_transpose_metadata()
+    q, k, v, do = (randn(rng, (h, t, dh), bf16) for _ in range(4))
+    kw = dict(causal=True, scale=dh ** -0.5)
+    out, lse = fm.fwd(q, k, v, topo, **kw)
+    dvec = (do.float() * out.float()).sum(-1)
+    bwd = (q, k, v, do, lse, dvec, topo)
+    times.update({
+        "flash_mha_fwd": (time_ms(lambda: fm.fwd(q, k, v, topo, **kw)),
+                          time_ms(lambda: fm.fwd_reference(q, k, v, topo, **kw))),
+        "flash_mha_dq": (time_ms(lambda: fm.dq(*bwd, **kw)), time_ms(lambda: fm.dq_reference(*bwd, **kw))),
+        "flash_mha_dkv": (time_ms(lambda: fm.dkv(*bwd, **kw)), time_ms(lambda: fm.dkv_reference(*bwd, **kw))),
+    })
+    # Per CTA tile and block: 2 products of 64 x 128 x 128 forward, 3 in
+    # dQ (dP, S, dS K) and 4 in dK/dV (S, dP, P^T dO, dS^T Q).
+    flops = {"flash_mha_fwd": 4, "flash_mha_dq": 6, "flash_mha_dkv": 8}
+    for kname in FLASH:
+        (kern, kcall), (plain, pcall) = times[kname]
+        rate = flops[kname] * h * topo.nnz_blocks * 128 ** 3 / kern / 1e9
+        print(f"  {kname:<15} H={h} T={t} {topo.nnz_blocks} blocks, bf16: kernel {kern * 1e3:.2f} us device "
+              f"({rate:.1f} TFLOP/s) / {kcall * 1e3:.2f} us call, plain {plain * 1e3:.2f} us device / "
+              f"{pcall * 1e3:.2f} us call", flush=True)
+    del q, k, v, do, out, lse, dvec, bwd
 
+    print("== phase 6: training slice, bf16: 5 Adam steps per attention route", flush=True)
+    batch = torch.from_numpy(
+        np.random.default_rng(4).integers(0, SERVE.vocab, (TRAIN_BATCH, SERVE.seq_len))
+    ).to(DEV)
+    train_launches = {}
+    for fused in (True, False):
+        train_launches[fused] = train_steps(fused, batch, name_limit)
+        torch.cuda.empty_cache()
+    launches.update({k: train_launches[True][k] for k in FLASH})
+
+    print("== phase 7: training slice, fp32: gradients through the kernels against plain versions",
+          flush=True)
+    for fused in (True, False):
+        fp32_grads_against_plain(fused, batch)
+        torch.cuda.empty_cache()
+
+    # launches: the serving run of phase 3 for the sparse kernels, the fused
+    # training run of phase 6 for the flash kernels.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
+        "flash_mha_fwd": ("sputnik_tpu_torch/csrc/flash_mha.cu", "sputnik_tpu/kernels/flash_mha.py:103"),
+        "flash_mha_dq": ("sputnik_tpu_torch/csrc/flash_mha.cu", "sputnik_tpu/kernels/flash_mha.py:262"),
+        "flash_mha_dkv": ("sputnik_tpu_torch/csrc/flash_mha.cu", "sputnik_tpu/kernels/flash_mha.py:317"),
     }
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [

@@ -1,9 +1,11 @@
-"""Block-sparse attention: SDD (scores) -> BSR softmax -> DSD (output).
+"""Block-sparse attention: SDD (scores) -> BSR softmax -> DSD (output), or
+the fused flash kernels.
 
-Port of ``sputnik_tpu/models/attention.py`` for the serving path: the band
-and causal topologies, the unfused multi-head attention and the band decode
-attention. Heads are a batch axis of the ops (one kernel launch per op for
-all heads) where the JAX package ``vmap``-s a single-head function.
+Port of ``sputnik_tpu/models/attention.py``: the band and causal
+topologies, multi-head and single-head attention (unfused, or ``fused=True``
+through ``flash_mha``) and the band decode attention. Heads are a batch
+axis of the ops (one kernel launch per op for all heads) where the JAX
+package ``vmap``-s a single-head function.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix
+from sputnik_tpu_torch.kernels.flash_mha import flash_mha
 
 __all__ = [
     "band_topology",
@@ -74,9 +77,14 @@ def multihead_block_sparse_attention(
     *,
     causal: bool = False,
     scale: Optional[float] = None,
+    fused: bool = False,
 ) -> torch.Tensor:
     """(H, T, dh) attention over a score topology shared by all heads: one
-    SDD and one DSD for all heads. Returns (H, T, dh)."""
+    SDD and one DSD for all heads, or with ``fused=True`` one ``flash_mha``
+    (the JAX package's route for concrete metadata, which the port always
+    has). Returns (H, T, dh)."""
+    if fused:
+        return flash_mha(q, k, v, topology, causal=causal, scale=scale)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scores = ops.sdd(q.contiguous(), k.contiguous(), topology, transpose_b=True)
@@ -84,10 +92,12 @@ def multihead_block_sparse_attention(
     return ops.dsd(probs, v.contiguous())
 
 
-def block_sparse_attention(q, k, v, topology, *, causal: bool = False, scale: Optional[float] = None):
-    """Single-head (T, dh) block-sparse attention."""
+def block_sparse_attention(q, k, v, topology, *, causal: bool = False, scale: Optional[float] = None,
+                           fused: bool = False):
+    """Single-head (T, dh) block-sparse attention; ``fused=True`` runs the
+    multi-head flash kernel with one head, as the JAX package does."""
     return multihead_block_sparse_attention(
-        q[None], k[None], v[None], topology, causal=causal, scale=scale
+        q[None], k[None], v[None], topology, causal=causal, scale=scale, fused=fused
     )[0]
 
 

@@ -1,10 +1,12 @@
-"""Carry the JAX package's parameter tree over to the port's modules.
+"""Carry the JAX package's parameter tree over to the port's modules, and
+the port's gradients back in the JAX tree's keys.
 
 ``params_from_numpy`` takes the tree as numpy (``jax.tree.map(np.asarray,
 params)``): nested dicts and lists with the JAX keys, which name the
 port's parameters one to one (``blocks[i]["moe"]["w1"]`` is
-``blocks.<i>.moe.w1``). Layouts are the same, so nothing is transposed.
-This module never imports jax.
+``blocks.<i>.moe.w1``). Layouts are the same, so nothing is transposed. ``grads_to_numpy`` is the
+inverse direction for gradients: keyed like ``flatten_tree`` of the JAX
+gradient tree. This module never imports jax.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from sputnik_tpu_torch.models.transformer import SparseLM, TransformerConfig
 
-__all__ = ["flatten_tree", "load_numpy_", "params_from_numpy"]
+__all__ = ["flatten_tree", "load_numpy_", "params_from_numpy", "grads_to_numpy"]
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -58,3 +60,13 @@ def load_numpy_(module: nn.Module, tree) -> nn.Module:
 def params_from_numpy(tree, cfg: TransformerConfig, *, device=None) -> SparseLM:
     """A :class:`SparseLM` on ``device`` holding the JAX parameters ``tree``."""
     return load_numpy_(SparseLM(cfg, device=device), tree)
+
+
+def grads_to_numpy(module: nn.Module) -> Dict[str, np.ndarray]:
+    """Every parameter's ``.grad`` as fp32 numpy, keyed like ``flatten_tree``
+    of the JAX gradient tree (``blocks.<i>.moe.w1``); a parameter that got
+    no gradient gives zeros, as ``jax.grad`` does."""
+    return {
+        name: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu().numpy()
+        for name, p in module.named_parameters()
+    }

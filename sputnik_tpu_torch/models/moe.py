@@ -6,6 +6,9 @@ projection. Products whose fp32 result the JAX package keeps
 (``preferred_element_type=float32``: the router logits that decide routing,
 and the expert GEMMs feeding gelu and the output scale) are taken on fp32
 copies of the operands, so a bf16 model routes as the JAX one does.
+Gradients flow as JAX's do: through the fp32 copies, the capacity scatter
+(dropped tokens land on a sacrificial row that is sliced off, so they get
+no gradient and give none to kept tokens) and the ``prob * keep`` scale.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 
-__all__ = ["MoEConfig", "MoE", "block_diag_topology", "init_moe_params", "moe_forward"]
+__all__ = ["MoEConfig", "MoE", "block_diag_topology", "init_moe_params", "moe_forward", "moe_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,17 +51,14 @@ class MoEConfig:
 
 
 class MoE(nn.Module):
-    """Parameters of one MoE FFN: ``router`` (d, E) fp32, ``w1`` (d, E*F) and
-    ``w2`` (E*F, d) in the model dtype. Frozen: the port serves, it does not
-    train yet."""
+    """Parameters of one MoE FFN, all trainable: ``router`` (d, E) fp32,
+    ``w1`` (d, E*F) and ``w2`` (E*F, d) in the model dtype."""
 
     def __init__(self, cfg: MoEConfig, *, device=None):
         super().__init__()
         self.cfg = cfg
         d, ef = cfg.d_model, cfg.ff_total
-        p = lambda *shape, dtype: nn.Parameter(  # noqa: E731
-            torch.zeros(shape, dtype=dtype, device=device), requires_grad=False
-        )
+        p = lambda *shape, dtype: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))  # noqa: E731
         self.router = p(d, cfg.n_experts, dtype=torch.float32)
         self.w1 = p(d, ef, dtype=cfg.dtype)
         self.w2 = p(ef, d, dtype=cfg.dtype)
@@ -70,7 +70,8 @@ class MoE(nn.Module):
 def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """Fill ``t`` with normal(0, std) draws from ``generator`` (drawn in fp32
     on the generator's device, then cast and copied)."""
-    t.copy_(torch.randn(t.shape, generator=generator, device=generator.device) * std)
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=generator, device=generator.device) * std)
 
 
 def init_moe_params(cfg: MoEConfig, generator: torch.Generator, device=None) -> MoE:
@@ -154,6 +155,15 @@ def moe_forward(
 
     y = y_perm[slot] * (prob * keep.float())[:, None]
     return y.to(x.dtype), aux
+
+
+def moe_loss(params, x: torch.Tensor, target: torch.Tensor, cfg: MoEConfig,
+             topology: Optional[BlockSparseMatrix] = None) -> torch.Tensor:
+    """fp32 mean squared error of the MoE output against ``target`` plus the
+    weighted router aux loss (``sputnik_tpu/models/moe.py:239-242``)."""
+    y, aux = moe_forward(params, x, cfg, topology)
+    mse = torch.mean((y.float() - target.float()) ** 2)
+    return mse + cfg.router_aux_weight * aux
 
 
 def moe_one(params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:

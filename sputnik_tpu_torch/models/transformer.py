@@ -1,11 +1,17 @@
-"""Sparse transformer LM and its serving loop (``sputnik_tpu/models/transformer.py``).
+"""Sparse transformer LM: its loss and its serving loop
+(``sputnik_tpu/models/transformer.py``).
 
 Block-sparse causal-band attention (SDD -> masked softmax -> DSD on the
-Hopper kernels) plus a top-1 MoE FFN, with layernorms and residuals.
-Serving: :func:`lm_prefill` runs the full sparse forward over a prompt and
-fills per-layer KV caches; :func:`lm_decode_step` decodes one token per
-sequence against the caches with the band mask; :func:`lm_generate_batched`
-prefills each prompt and then decodes the batch together.
+Hopper kernels, or with ``fused_attention`` the flash kernels) plus a top-1
+MoE FFN, with layernorms and residuals. Training: :func:`lm_loss` is the
+next-token cross-entropy plus the router's balance loss, differentiable in
+every parameter (the loop, ``loss.backward()`` and ``torch.optim.Adam``, is
+the caller's, as ``examples/sparse_transformer_lm.py`` writes it with
+optax). Serving: :func:`lm_prefill` runs the full sparse forward over a
+prompt and fills per-layer KV caches; :func:`lm_decode_step` decodes one
+token per sequence against the caches with the band mask;
+:func:`lm_generate_batched` prefills each prompt and then decodes the batch
+together. Serving runs under ``torch.no_grad()`` and builds no graph.
 
 The parameters live in :class:`SparseLM` (an ``nn.Module`` on an explicit
 device) whose ``state_dict`` keys follow the JAX parameter tree
@@ -36,6 +42,7 @@ __all__ = [
     "block_forward",
     "lm_topologies",
     "lm_forward",
+    "lm_loss",
     "init_decode_caches",
     "block_decode",
     "lm_prefill",
@@ -59,6 +66,9 @@ class TransformerConfig:
     n_layers: int = 2
     vocab: int = 1024
     dtype: torch.dtype = torch.bfloat16
+    # Attention through the flash kernels (flash_mha) instead of SDD ->
+    # softmax -> DSD; prefill honours it too.
+    fused_attention: bool = False
 
     @property
     def d_head(self) -> int:
@@ -73,7 +83,7 @@ class TransformerConfig:
 
 
 def _param(*shape, dtype, device):
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
 class Block(nn.Module):
@@ -85,7 +95,7 @@ class Block(nn.Module):
         self.wqkv = _param(d, 3 * d, dtype=cfg.dtype, device=device)
         self.wo = _param(d, d, dtype=cfg.dtype, device=device)
         for name in ("ln1", "ln2"):
-            setattr(self, f"{name}_scale", nn.Parameter(torch.ones(d, device=device), requires_grad=False))
+            setattr(self, f"{name}_scale", nn.Parameter(torch.ones(d, device=device)))
             setattr(self, f"{name}_bias", _param(d, dtype=torch.float32, device=device))
         self.moe = moe_lib.MoE(cfg.moe_cfg(), device=device)
 
@@ -99,7 +109,7 @@ class SparseLM(nn.Module):
         d = cfg.d_model
         self.embed = _param(cfg.vocab, d, dtype=cfg.dtype, device=device)
         self.blocks = nn.ModuleList(Block(cfg, device=device) for _ in range(cfg.n_layers))
-        self.lnf_scale = nn.Parameter(torch.ones(d, device=device), requires_grad=False)
+        self.lnf_scale = nn.Parameter(torch.ones(d, device=device))
         self.lnf_bias = _param(d, dtype=torch.float32, device=device)
 
     def forward(self, tokens: torch.Tensor):
@@ -141,7 +151,7 @@ def _attention_block(params: Block, x, cfg: TransformerConfig, topology):
     a_in = _layernorm(x, params.ln1_scale, params.ln1_bias)
     qkv = (a_in @ params.wqkv).to(cfg.dtype).reshape(t, 3, h, dh).permute(1, 2, 0, 3)
     q, k, v = qkv[0], qkv[1], qkv[2]  # (H, T, dh)
-    o = attn_lib.multihead_block_sparse_attention(q, k, v, topology, causal=True)
+    o = attn_lib.multihead_block_sparse_attention(q, k, v, topology, causal=True, fused=cfg.fused_attention)
     o = o.permute(1, 0, 2).reshape(t, d)
     return x + (o @ params.wo).to(cfg.dtype), k, v
 
@@ -162,12 +172,13 @@ def block_forward(
 
 def lm_topologies(cfg: TransformerConfig, device=None):
     """(attention topology, moe topology) on ``device``: build once, reuse.
-    The grouped MoE reads no topology, so the second is None until
-    ``impl="bsr"`` is ported."""
+    The attention topology carries its transpose metadata, which the
+    backward's column walks read. The grouped MoE reads no topology, so the
+    second is None until ``impl="bsr"`` is ported."""
     topo = attn_lib.causal_block_topology(
         cfg.seq_len, block_size=128, window_blocks=cfg.window_blocks, dtype=cfg.dtype, device=device
     )
-    return topo, None
+    return topo.with_transpose_metadata(), None
 
 
 def lm_forward(params: SparseLM, tokens: torch.Tensor, cfg: TransformerConfig, topos=None):
@@ -182,6 +193,15 @@ def lm_forward(params: SparseLM, tokens: torch.Tensor, cfg: TransformerConfig, t
         aux_total = aux_total + aux
     x = _layernorm(x, params.lnf_scale, params.lnf_bias)
     return _logits(x, params.embed), aux_total
+
+
+def lm_loss(params: SparseLM, tokens: torch.Tensor, cfg: TransformerConfig, topos=None) -> torch.Tensor:
+    """Next-token cross-entropy (fp32 log-softmax of the logits at every
+    position but the last) plus 0.01 times the summed router aux loss."""
+    logits, aux = lm_forward(params, tokens, cfg, topos)
+    lp = torch.log_softmax(logits[:-1].float(), dim=-1)
+    nll = -lp.gather(-1, tokens[1:].long()[:, None]).mean()
+    return nll + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +240,7 @@ def block_decode(params: Block, x: torch.Tensor, cfg: TransformerConfig, cache, 
     return x + moe_lib.moe_one(params.moe, f_in, cfg.moe_cfg())
 
 
+@torch.no_grad()
 def lm_prefill(params: SparseLM, prompt: torch.Tensor, cfg: TransformerConfig, max_len: int):
     """Full sparse forward over ``prompt`` (Tp,), capturing per-layer K/V into
     decode caches. Returns (caches, last-position logits (vocab,))."""
@@ -247,6 +268,7 @@ def lm_prefill(params: SparseLM, prompt: torch.Tensor, cfg: TransformerConfig, m
     return caches, _logits(x[-1], params.embed)
 
 
+@torch.no_grad()
 def lm_decode_step(params: SparseLM, token: torch.Tensor, caches: Caches, pos: int,
                    cfg: TransformerConfig, *, mode: str = "band"):
     """One decode step: token ids (...,) -> logits (..., vocab); the caches
@@ -258,6 +280,7 @@ def lm_decode_step(params: SparseLM, token: torch.Tensor, caches: Caches, pos: i
     return _logits(x, params.embed), caches
 
 
+@torch.no_grad()
 def lm_generate_batched(
     params: SparseLM,
     prompts: torch.Tensor,  # (B, Tp)

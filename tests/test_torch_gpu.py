@@ -1,6 +1,7 @@
 """The port on a CUDA card: the Hopper kernels against their plain versions,
 the registry's CUDA routing, and the small LM through the kernels against
-the same LM on the CPU.
+the same LM on the CPU (serving logits, and training gradients on both
+attention routes).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -16,7 +17,10 @@ import torch
 
 from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.kernels import bsr_dsd, bsr_sdd, reference
+from sputnik_tpu_torch.kernels import flash_mha as fm
+from sputnik_tpu_torch.models import attention
 from sputnik_tpu_torch.models import transformer as tr
+from sputnik_tpu_torch.models.convert import grads_to_numpy
 from sputnik_tpu_torch.ops import registry
 from sputnik_tpu_torch.utils import testing
 from sputnik_tpu_torch.utils.testing import ATOL
@@ -118,3 +122,86 @@ def test_small_lm_on_card_matches_cpu(cuda):
     full_cfg = dataclasses.replace(cfg, capacity=cfg.seq_len)
     full, _ = tr.lm_forward(gpu, torch.cat([tokens[0], tokens[1]]).to(cuda), full_cfg)
     assert bool(torch.isfinite(full).all())
+
+
+def _flash_topology(kind, device):
+    """(topology, T, Tk, causal) at small sizes."""
+    ones = np.ones((3, BS, BS), np.float32)
+    if kind == "band":
+        return attention.causal_block_topology(512, window_blocks=2, device=device), 512, 512, True
+    if kind == "empty_row_col":
+        return testing.bsr_from_blocks(384, 512, [0, 0, 2], [3, 0, 0], ones, device=device), 384, 512, False
+    topo = testing.random_bsr(np.random.default_rng(3), 256, 512, 256 * 512 // 3, BS, unordered=True,
+                              device=device)
+    return topo, 256, 512, False
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["band", "empty_row_col", "rectangular"])
+def test_flash_kernels_match_plain(cuda, kind, dtype):
+    """Forward (out and lse), dQ and dK/dV against their plain versions,
+    fp32 outputs, within the reference ATOL; the kernel's lse is the one
+    the backward kernels read."""
+    topo, t, tk, causal = _flash_topology(kind, cuda)
+    rng = np.random.default_rng(4)
+    q, do = (_randn(rng, (2, t, 128), cuda, dtype) for _ in range(2))
+    k, v = (_randn(rng, (2, tk, 128), cuda, dtype) for _ in range(2))
+    kw = dict(causal=causal, scale=128 ** -0.5, out_dtype=torch.float32)
+    before = dict(fm.LAUNCHES)
+    out, lse = fm.fwd(q, k, v, topo, **kw)
+    ref_out, ref_lse = fm.fwd_reference(q, k, v, topo, **kw)
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    dvec = (do.float() * ref_out).sum(-1)
+    args = (q, k, v, do, lse, dvec, topo)
+    torch.testing.assert_close(fm.dq(*args, **kw), fm.dq_reference(*args, **kw), atol=ATOL, rtol=0)
+    for got, want in zip(fm.dkv(*args, **kw), fm.dkv_reference(*args, **kw)):
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    assert {n: fm.LAUNCHES[n] - before[n] for n in before} == dict.fromkeys(before, 1)
+    if kind == "empty_row_col":
+        assert not out[:, 128:256].any() and not fm.dkv(*args, **kw)[0][:, 128:384].any()
+
+
+def test_flash_wrappers_raise_on_cuda(cuda):
+    """A problem the kernels do not take raises ValueError on the card; it
+    never falls back to the plain version."""
+    topo = attention.causal_block_topology(256, window_blocks=2, device=cuda)
+    q = torch.zeros(2, 256, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fm.flash_mha(q, q, q, topo, causal=True)
+    q = torch.zeros(2, 256, 128, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fm.flash_mha(q, q, q, topo, causal=True)
+    q = torch.zeros(2, 256, 128, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        fm.flash_mha(q, q.bfloat16(), q, topo, causal=True)
+    assert registry.dispatch_name("flash_mha", q, q, q, topo) == "cuda_flash"
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_small_lm_grads_on_card_match_cpu(cuda, fused):
+    """One lm_loss backward through the kernels on the card against the
+    same weights through the plain versions on the CPU, fp32: the loss and
+    every parameter's gradient within 1e-3 * max|g|."""
+    cfg = tr.TransformerConfig(d_model=256, n_heads=2, seq_len=512, window_blocks=2, n_experts=2,
+                               d_ff=128, n_layers=2, vocab=128, dtype=torch.float32, fused_attention=fused)
+    cpu = tr.init_lm_params(cfg, torch.Generator().manual_seed(0))
+    gpu = tr.SparseLM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, cfg.seq_len))
+    launches = bsr_dsd.LAUNCHES, bsr_sdd.LAUNCHES, dict(fm.LAUNCHES)
+    loss = tr.lm_loss(gpu, tokens.to(cuda), cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    flash = {n: fm.LAUNCHES[n] - launches[2][n] for n in fm.LAUNCHES}
+    sparse = (bsr_dsd.LAUNCHES - launches[0], bsr_sdd.LAUNCHES - launches[1])
+    if fused:
+        assert flash == dict.fromkeys(flash, cfg.n_layers) and sparse == (0, 0)
+    else:
+        assert flash == dict.fromkeys(flash, 0) and sparse == (4 * cfg.n_layers, 2 * cfg.n_layers)
+    want_loss = tr.lm_loss(cpu, tokens, cfg)
+    want_loss.backward()
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    got, want = grads_to_numpy(gpu), grads_to_numpy(cpu)
+    for name, g in want.items():
+        assert float(np.abs(got[name] - g).max()) <= 1e-3 * float(np.abs(g).max()) + 1e-6, name

@@ -40,7 +40,7 @@ def test_lm_forward_matches_jax(models):
     jlogits, jaux = jtr.lm_forward(jparams, jnp.asarray(tokens[0]), jcfg)
     tlogits, taux = tr.lm_forward(tparams, torch.from_numpy(tokens[0]), tcfg)
     assert tlogits.dtype == torch.float32 and tlogits.shape == (CFG["seq_len"], CFG["vocab"])
-    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), atol=2e-3)
+    np.testing.assert_allclose(tlogits.detach().numpy(), np.asarray(jlogits), atol=2e-3)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
 
 
@@ -76,4 +76,4 @@ def test_decode_step_matches_full_forward(models):
     caches, _ = tr.lm_prefill(tparams, seq[:PROMPT], tcfg, CFG["seq_len"])
     for pos in range(PROMPT, PROMPT + 4):
         logits, caches = tr.lm_decode_step(tparams, seq[pos], caches, pos, tcfg)
-        np.testing.assert_allclose(logits.numpy(), full[pos].numpy(), atol=2e-3)
+        np.testing.assert_allclose(logits.numpy(), full[pos].detach().numpy(), atol=2e-3)

@@ -82,7 +82,7 @@ def test_moe_forward_matches_jax(rng, moe_pair, tokens):
     x = rng.standard_normal((tokens, jcfg.d_model)).astype(np.float32)
     jy, jaux = jmoe.moe_forward(jparams, jnp.asarray(x), jcfg, jmoe.block_diag_topology(jcfg))
     ty, taux = moe.moe_forward(tparams, torch.from_numpy(x), tcfg)
-    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), atol=1e-4)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
 
 
