@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the three CUDA libraries from csrc/ (one nvcc each, all
+   versions; build the four CUDA libraries from csrc/ (one nvcc each, all
    started together) and print the seconds.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
@@ -16,8 +16,12 @@ Phases (any failure raises and the script exits non-zero):
    kernels (forward with lse, dQ, dK/dV) at the training slice's shape
    (8 heads, T = 2048, causal band of window 4), on a random non-causal
    topology with an empty block-row and an empty block-column, and with
-   rectangular K/V (T = 1024, Tk = 2048); bf16 (fp32 and bf16 outputs) and
-   fp32.
+   rectangular K/V (T = 1024, Tk = 2048); the fused FFN kernels at the MoE
+   bench shape (d_model 1024, 8 experts of d_ff 2048, 4096 rows): the group
+   kernel on the block-diagonal plan, a permuted group layout and one
+   block-row per group, with gelu, relu and identity, and the dropless
+   kernel on ragged groups with an empty expert and dead tiles, tile_rows
+   128 and 256 (live rows only); bf16 (fp32 and bf16 outputs) and fp32.
 3. The serving slice: the sparse LM at the serving benchmark's width
    (d_model 1024, 8 heads, 8 experts, d_ff 2048, vocab 8192, 4 layers,
    bf16, random weights from seed 0) serves 4 requests of 1024-token
@@ -46,6 +50,20 @@ Phases (any failure raises and the script exits non-zero):
    (registry.forced_variant), every parameter's gradient within
    1e-3 * max|g|; prints the worst parameter.
 
+8. The MoE slice at bench/moe.py's default width (d_model 1024, 8 experts
+   of d_ff 2048, 4096 tokens, capacity 512): (a) fp32, TF32 off: the
+   forwards that reach a kernel (bsr, bsr_unfused, dropless bsr and
+   bsr_fused) against themselves on the plain versions within 1e-3; the
+   capacity impls agree, and the dropless impls agree with each other and
+   with grouped at a capacity that drops nothing; (b) the exact launches of
+   each forward; (c) all six bf16 forwards under
+   torch.cuda.set_sync_debug_mode("error"); (d) fp32 gradients of
+   mean(y^2) + 0.01 aux through bsr and dropless bsr_fused against the plain
+   path within 1e-3 * max|g|, with the backward's exact launches; (e) 5 bf16
+   Adam steps (lr 3e-3) on each, losses finite and falling; (f) the
+   bench/moe.py lines; (g) both FFN kernels' device times against their
+   plain versions.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -63,12 +81,14 @@ import time
 import numpy as np
 import torch
 
-from sputnik_tpu_torch.kernels import _build, bsr_dsd, bsr_sdd
+from sputnik_tpu_torch.bench import moe as moe_bench
+from sputnik_tpu_torch.kernels import _build, bsr_dsd, bsr_ffn, bsr_sdd
 from sputnik_tpu_torch.kernels import flash_mha as fm
-from sputnik_tpu_torch.models import attention
+from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.ops import registry
 from sputnik_tpu_torch.utils import testing
+from sputnik_tpu_torch.utils.profiling import time_ms
 from sputnik_tpu_torch.utils.testing import ATOL
 
 MODES = [(False, False), (False, True), (True, False), (True, True)]
@@ -79,6 +99,14 @@ SERVE = tr.TransformerConfig(
 N_REQUESTS, PROMPT, N_NEW = 4, 1024, 32
 TRAIN_BATCH, TRAIN_STEPS, LR = 4, 5, 3e-3
 FLASH = tuple(fm.LAUNCHES)  # flash_mha_fwd, flash_mha_dq, flash_mha_dkv
+FFN = tuple(bsr_ffn.LAUNCHES)  # bsr_ffn_group, bsr_ffn_dropless
+KERNELS = ("bsr_dsd_stream", "bsr_sdd") + FLASH + FFN
+# The MoE slice: bench/moe.py's default config (the serving LM's MoE layer).
+MOE = moe.MoEConfig(d_model=1024, d_ff=2048, n_experts=8, capacity=512, dtype=torch.bfloat16)
+# lr 3e-3, as the LM's training phase: at this width lr 1e-2 (examples/
+# moe_training.py's, for d_model 256) overshoots on the second step through
+# every impl and on the plain path alike (PERF.md, Findings).
+MOE_TOKENS, MOE_STEPS, MOE_LR = 4096, 5, 3e-3
 DEV = torch.device("cuda")
 
 
@@ -248,43 +276,81 @@ def flash_cases(rng, errors):
         case("rectangular T=1024 Tk=2048", topo, 4, 1024, 2048, False, dtype)
 
 
-# ----------------------------------------------------------------- phase 5 --
-def time_ms(fn, warmup=10, iters=100):
-    """(device, call): milliseconds per call. ``device`` replays the ``iters``
-    calls captured in one CUDA graph between two CUDA events, so the host's
-    launch cost is left out; ``call`` times ``iters`` eager calls the same
-    way, the host's cost included (a small kernel can wait on its host)."""
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    call = start.elapsed_time(stop) / iters
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters, call
+def ffn_cases(rng, errors):
+    """The fused FFN kernels against their plain versions at the MoE bench
+    shape (d_model 1024, 8 experts of d_ff 2048, 4096 routed rows): the
+    group kernel on the block-diagonal plan (4 block-rows per group), on a
+    permuted group layout (expert runs and the column ids inside each run
+    out of order) and with one block-row per group; gelu, relu and
+    identity; the dropless kernel on ragged groups with one expert routed
+    no tile and live tiles below the tile count, at tile_rows 128 and 256,
+    compared on the live rows only. W2 is scaled so outputs stay below 8,
+    where one bf16 ulp is within ATOL."""
+    d, d_ff, n_exp = MOE.d_model, MOE.d_ff, MOE.n_experts
+    f_blocks = d_ff // 128
+    diag = np.arange(n_exp * f_blocks)
+    runs = diag.reshape(n_exp, f_blocks)
+    permuted = np.concatenate([rng.permutation(r) for r in runs[rng.permutation(n_exp)]])
+    one_row = np.tile(runs, (4, 1)).reshape(-1)  # 32 groups of one block-row
+    # Tiles of 256 rows: expert 1 routed none; 18 of 24 tiles live.
+    tiles = np.array([0] * 5 + [2] * 3 + [3] * 4 + [4] * 2 + [5] * 2 + [6] * 1 + [7] * 1 + [7] * 6, np.int32)
+    live = 18
+
+    def case(name, dtype, got_fn, want_fn, n_rows, kernel):
+        errs = []
+        for out_dtype in dict.fromkeys((torch.float32, dtype)):
+            got, want = got_fn(out_dtype)[:n_rows], want_fn(out_dtype)[:n_rows]
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+            check(float(want.float().abs().max()) > 0.1, f"{name}: plain output is about zero")
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= ATOL, f"{name} out={out_dtype}: max |kernel - plain| = {err} > {ATOL}")
+            errors[kernel] = max(errors.get(kernel, 0.0), err)
+            errs.append(f"{str(out_dtype).split('.')[-1]} out {err:.3e}")
+        print(f"  {name:<42} {str(dtype).split('.')[-1]:<9} max|kernel-plain|: {', '.join(errs)}", flush=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(rng, (MOE_TOKENS, d), dtype)
+        w1 = randn(rng, (d, n_exp * d_ff), dtype, d ** -0.5)
+        w2 = randn(rng, (n_exp * d_ff, d), dtype, 0.5 * d_ff ** -0.5)
+        layouts = [("block_diag", diag, 4), ("permuted", permuted, 4), ("one block-row per group", one_row, 1)]
+        for layout, cols, rows_per_group in layouts:
+            cols = torch.from_numpy(cols.astype(np.int32)).to(DEV)
+            acts = ("gelu", "relu", "identity") if layout == "block_diag" else ("gelu",)
+            for act in acts:
+                kw = dict(activation=act)
+                case(f"bsr_ffn_group {layout} {act}", dtype,
+                     lambda o: bsr_ffn.group_ffn(x, w1, w2, cols, rows_per_group, out_dtype=o, **kw),
+                     lambda o: bsr_ffn.fused_group_ffn_reference(x, w1, w2, cols, rows_per_group,
+                                                                 out_dtype=o, **kw),
+                     MOE_TOKENS, "bsr_ffn_group")
+        xt = randn(rng, (len(tiles) * 256, d), dtype)
+        for tile_rows in (128, 256):
+            per = 256 // tile_rows
+            e_row = torch.from_numpy(np.repeat(tiles, per)).to(DEV)
+            lv = torch.tensor(live * per, dtype=torch.int32, device=DEV)
+            kw = dict(tile_rows=tile_rows, live_rows=lv)
+            case(f"bsr_ffn_dropless tile_rows={tile_rows} live {live * per}/{len(tiles) * per}", dtype,
+                 lambda o: bsr_ffn.dropless_ffn(xt, w1, w2, e_row, d_ff, out_dtype=o, **kw),
+                 lambda o: bsr_ffn.fused_dropless_ffn_reference(xt, w1, w2, e_row, d_ff, out_dtype=o, **kw),
+                 live * 256, "bsr_ffn_dropless")
 
 
 # ------------------------------------------------------------- phases 6, 7 --
 def reset_launches() -> None:
     bsr_dsd.LAUNCHES = bsr_sdd.LAUNCHES = 0
     fm.LAUNCHES.update(dict.fromkeys(FLASH, 0))
+    bsr_ffn.LAUNCHES.update(dict.fromkeys(FFN, 0))
 
 
 def launch_counts() -> dict:
-    return {"bsr_dsd_stream": bsr_dsd.LAUNCHES, "bsr_sdd": bsr_sdd.LAUNCHES, **fm.LAUNCHES}
+    return {"bsr_dsd_stream": bsr_dsd.LAUNCHES, "bsr_sdd": bsr_sdd.LAUNCHES, **fm.LAUNCHES,
+            **bsr_ffn.LAUNCHES}
+
+
+def launches(**nonzero) -> dict:
+    """Every kernel's count: the given ones, 0 for the rest."""
+    return {**dict.fromkeys(KERNELS, 0), **nonzero}
 
 
 def expected_train_launches(fused: bool, n_seq: int) -> dict:
@@ -294,8 +360,8 @@ def expected_train_launches(fused: bool, n_seq: int) -> dict:
     dB, SDD's dA and dB) + 1 SDD (DSD's dA) per layer and sequence."""
     per = SERVE.n_layers * n_seq
     if fused:
-        return {"bsr_dsd_stream": 0, "bsr_sdd": 0, **dict.fromkeys(FLASH, per)}
-    return {"bsr_dsd_stream": 4 * per, "bsr_sdd": 2 * per, **dict.fromkeys(FLASH, 0)}
+        return launches(**dict.fromkeys(FLASH, per))
+    return launches(bsr_dsd_stream=4 * per, bsr_sdd=2 * per)
 
 
 def batch_loss(lm, batch, cfg, topos):
@@ -354,7 +420,7 @@ def fp32_grads_against_plain(fused: bool, batch) -> None:
             loss = batch_loss(lm, batch, cfg, topos)
             loss.backward()
         torch.cuda.synchronize()
-        want = dict.fromkeys(launch_counts(), 0) if plain else expected_train_launches(fused, len(batch))
+        want = launches() if plain else expected_train_launches(fused, len(batch))
         check(launch_counts() == want, f"fp32 fused={fused} plain={plain}: launches {launch_counts()}")
         losses.append(loss.item())
         grads.append({n: p.grad.detach().clone() for n, p in lm.named_parameters()})
@@ -364,6 +430,195 @@ def fp32_grads_against_plain(fused: bool, batch) -> None:
           f"worst parameter {worst[1]}: max |kernels - plain| = {worst[0]:.3e} * max|g|", flush=True)
     check(all(torch.isfinite(g).all() for g in grads[0].values()), "non-finite fp32 gradient")
     check(worst[0] <= 1e-3, f"fp32 gradients of {worst[1]} differ by {worst[0]:.3e} * max|g| > 1e-3")
+
+
+# ----------------------------------------------------------------- phase 8 --
+# Launches of one forward of each MoE impl (none for grouped and ragged).
+FORWARD_LAUNCHES = {
+    "bsr": launches(bsr_ffn_group=1),
+    "bsr_unfused": launches(bsr_sdd=1, bsr_dsd_stream=1),
+    "dropless_bsr": launches(bsr_sdd=1, bsr_dsd_stream=1),
+    "dropless_bsr_fused": launches(bsr_ffn_dropless=1),
+}
+# A fused impl's backward: the unfused chain's recompute (1 SDD + 1 DSD) and
+# its VJPs (DSD's dA by SDD and dB, SDD's dB by DDS, and SDD's dA, the
+# gradient of the tokens, when they need one).
+BACKWARD_LAUNCHES = {True: launches(bsr_dsd_stream=4, bsr_sdd=2),
+                     False: launches(bsr_dsd_stream=3, bsr_sdd=2)}
+
+
+def moe_setup(cfg):
+    """Parameters (seed 0), tokens (seed 1) and the block-diagonal topology
+    of the MoE slice in ``cfg``'s dtype."""
+    params = moe.init_moe_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    x = torch.randn((MOE_TOKENS, cfg.d_model), generator=gen, device=DEV).to(cfg.dtype)
+    return params, x, moe.block_diag_topology(cfg, device=DEV)
+
+
+def moe_forward_fn(impl, params, cfg, topo):
+    """The forward of ``impl``, (x) -> (y, aux): the capacity impls
+    grouped, bsr, bsr_unfused, and dropless_{ragged, bsr, bsr_fused}."""
+    if impl.startswith("dropless_"):
+        return lambda x: moe.dropless_moe_forward(params, x, cfg, impl=impl[len("dropless_"):])
+    return lambda x: moe.moe_forward(params, x, cfg, topo, impl=impl)
+
+
+MOE_IMPLS = ("grouped", "bsr", "bsr_unfused", "dropless_ragged", "dropless_bsr", "dropless_bsr_fused")
+
+
+def moe_fp32_against_plain() -> None:
+    """(a) and (b): fp32 at bench width, TF32 off. Each forward that reaches
+    a kernel against itself on the plain versions, within 1e-3, with its
+    exact launches; the capacity impls agree with each other, the dropless
+    impls with each other and with grouped when the capacity holds every
+    token."""
+    cfg = dataclasses.replace(MOE, dtype=torch.float32)
+    params, x, topo = moe_setup(cfg)
+    ys = {}
+    with torch.no_grad():
+        for impl in MOE_IMPLS:
+            fwd = moe_forward_fn(impl, params, cfg, topo)
+            torch.cuda.synchronize()
+            reset_launches()
+            ys[impl] = fwd(x)[0]
+            torch.cuda.synchronize()
+            want = FORWARD_LAUNCHES.get(impl, launches())
+            check(launch_counts() == want, f"fp32 {impl}: launches {launch_counts()}, expected {want}")
+            check(bool(torch.isfinite(ys[impl]).all()), f"fp32 {impl}: non-finite output")
+            line = f"  fp32 {impl:<19} max|y| {float(ys[impl].abs().max()):.4f}"
+            if impl in FORWARD_LAUNCHES:
+                with registry.forced_variant("torch_reference"):
+                    plain = fwd(x)[0]
+                torch.cuda.synchronize()
+                check(launch_counts() == want, f"fp32 {impl}: the plain forward launched a kernel")
+                err = float((ys[impl] - plain).abs().max())
+                check(err <= 1e-3, f"fp32 {impl}: max |kernels - plain| = {err} > 1e-3")
+                line += f"; max |kernels - plain| = {err:.3e}; launches { {k: v for k, v in want.items() if v} }"
+            print(line, flush=True)
+        full = dataclasses.replace(cfg, capacity=MOE_TOKENS)  # drops no token
+        ys["grouped_no_drop"] = moe.moe_forward(params, x, full, impl="grouped")[0]
+    for group in (("grouped", "bsr", "bsr_unfused"),
+                  ("grouped_no_drop", "dropless_ragged", "dropless_bsr", "dropless_bsr_fused")):
+        err = max(float((ys[group[0]] - ys[g]).abs().max()) for g in group[1:])
+        print(f"  fp32 {' / '.join(group)} agree: max |diff| = {err:.3e}", flush=True)
+        check(err <= 1e-3, f"fp32 impls {group} differ by {err} > 1e-3")
+    dropped = int((ys["grouped"].abs().amax(dim=1) == 0).sum())
+    print(f"  capacity {cfg.capacity}: {dropped} of {MOE_TOKENS} tokens dropped; dropless drops none",
+          flush=True)
+
+
+def moe_no_host_reads() -> None:
+    """(c): all six bf16 forwards at bench width under
+    ``torch.cuda.set_sync_debug_mode("error")``: a device read raises."""
+    params, x, topo = moe_setup(MOE)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for impl in MOE_IMPLS:
+                moe_forward_fn(impl, params, MOE, topo)(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  bf16: {', '.join(MOE_IMPLS)} ran with no synchronizing call", flush=True)
+
+
+def moe_fp32_grads() -> None:
+    """(d): fp32 gradients of mean(y^2) + 0.01 aux through bsr and dropless
+    bsr_fused against the plain path: every parameter's and the tokens'
+    within 1e-3 * max|g|, and the backward's exact launches."""
+    cfg = dataclasses.replace(MOE, dtype=torch.float32)
+    params, x, topo = moe_setup(cfg)
+    for impl in ("bsr", "dropless_bsr_fused"):
+        fwd = moe_forward_fn(impl, params, cfg, topo)
+        grads = []
+        for plain in (False, True):
+            params.zero_grad(set_to_none=True)
+            xg = x.clone().requires_grad_()
+            with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+                y, aux = fwd(xg)
+                loss = torch.mean(y.float() ** 2) + cfg.router_aux_weight * aux
+                torch.cuda.synchronize()
+                reset_launches()
+                loss.backward()
+            torch.cuda.synchronize()
+            want = launches() if plain else BACKWARD_LAUNCHES[True]
+            check(launch_counts() == want, f"fp32 {impl} plain={plain}: backward launches {launch_counts()}")
+            grads.append({**{n: p.grad.detach().clone() for n, p in params.named_parameters()},
+                          "x": xg.grad.detach().clone()})
+        check(all(bool(torch.isfinite(g).all()) for g in grads[0].values()), f"{impl}: non-finite gradient")
+        worst = max((float((grads[0][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30), n)
+                    for n, g in grads[1].items())
+        print(f"  fp32 {impl}: worst gradient {worst[1]}: max |kernels - plain| = {worst[0]:.3e} * max|g|; "
+              f"backward launches { {k: v for k, v in BACKWARD_LAUNCHES[True].items() if v} }", flush=True)
+        check(worst[0] <= 1e-3, f"fp32 {impl} gradient of {worst[1]} differs by {worst[0]:.3e} * max|g|")
+
+
+def moe_train(impl: str, name_limit: str) -> dict:
+    """(e): MOE_STEPS bf16 Adam steps (lr MOE_LR) on the MSE against a fixed
+    target plus the aux loss; returns the launches of all steps."""
+    params, x, topo = moe_setup(MOE)
+    target = torch.randn(x.shape, generator=torch.Generator(device=DEV).manual_seed(2), device=DEV)
+    fwd = moe_forward_fn(impl, params, MOE, topo)
+    opt = torch.optim.Adam(params.parameters(), lr=MOE_LR)
+    kernel = "bsr_ffn_group" if impl == "bsr" else "bsr_ffn_dropless"
+    want = {k: v + (k == kernel) for k, v in BACKWARD_LAUNCHES[False].items()}
+    total, losses = launches(), []
+    for _ in range(MOE_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        opt.zero_grad(set_to_none=True)
+        y, aux = fwd(x)
+        loss = torch.mean((y.float() - target) ** 2) + MOE.router_aux_weight * aux
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        check(launch_counts() == want, f"bf16 {impl}: launches per step {launch_counts()}, expected {want}")
+        total = {k: total[k] + v for k, v in launch_counts().items()}
+        losses.append(loss.item())
+    check(all(np.isfinite(losses)), f"bf16 {impl}: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"bf16 {impl}: the loss did not fall: {losses}")
+    print(f"  bf16 {impl}: losses {[round(v, 5) for v in losses]}; launches per step "
+          f"{ {k: v for k, v in want.items() if v} } on {name_limit}", flush=True)
+    return total
+
+
+def moe_kernel_times(name_limit: str) -> dict:
+    """(g): device times of the two FFN kernels and their plain versions at
+    the bench shape, bf16: the group kernel on the block-diagonal plan, the
+    dropless kernel on the bench tokens' own routing (tile_rows 256)."""
+    params, x, topo = moe_setup(MOE)
+    w1, w2 = params.w1.detach(), params.w2.detach()
+    plan = bsr_ffn.plan_group_ffn(topo)
+    cols = bsr_ffn.plan_cols(topo, plan, DEV)
+    x_perm = torch.randn((MOE.padded_tokens, MOE.d_model), device=DEV).to(MOE.dtype)
+    times = {"bsr_ffn_group": (
+        time_ms(lambda: bsr_ffn.group_ffn(x_perm, w1, w2, cols, plan[1])),
+        time_ms(lambda: bsr_ffn.fused_group_ffn_reference(x_perm, w1, w2, cols, plan[1])))}
+    with torch.no_grad():
+        logits = moe.router_logits(params, x, MOE)
+        mbr, _, _, _, _, expert_rows, _, src = moe._dropless_route(logits, MOE_TOKENS, MOE, 2)
+        xd = x[src]
+        bounds = torch.cumsum(expert_rows, 0)
+        e_row = torch.searchsorted(bounds, torch.arange(0, mbr, 2, device=DEV), right=True)
+        e_row = e_row.clamp(max=MOE.n_experts - 1).to(torch.int32)
+        live = ((expert_rows.sum() * 128) // 256).to(torch.int32)
+    kw = dict(tile_rows=256, live_rows=live)
+    times["bsr_ffn_dropless"] = (
+        time_ms(lambda: bsr_ffn.dropless_ffn(xd, w1, w2, e_row, MOE.d_ff, **kw)),
+        time_ms(lambda: bsr_ffn.fused_dropless_ffn_reference(xd, w1, w2, e_row, MOE.d_ff, **kw)))
+    n_live = int(live)
+    useful = {"bsr_ffn_group": 4 * MOE.padded_tokens * MOE.d_model * MOE.d_ff,
+              "bsr_ffn_dropless": 4 * n_live * 256 * MOE.d_model * MOE.d_ff}
+    recompute = (MOE.d_model // 256 + 1) / 2  # executed / useful FLOP of the two-tile CTA
+    for kname, ((kern, kcall), (plain, pcall)) in times.items():
+        rows = f"{MOE.padded_tokens} rows" if kname == "bsr_ffn_group" else f"{n_live}/{len(e_row)} live tiles of 256 rows"
+        print(f"  {kname:<16} {rows}, bf16: kernel {kern * 1e3:.2f} us device "
+              f"({useful[kname] / kern / 1e9:.1f} useful TFLOP/s, {useful[kname] * recompute / kern / 1e9:.1f} "
+              f"executed) / {kcall * 1e3:.2f} us call, plain {plain * 1e3:.2f} us device / "
+              f"{pcall * 1e3:.2f} us call on {name_limit}", flush=True)
+    return times
 
 
 def main() -> int:
@@ -377,8 +632,8 @@ def main() -> int:
     print(f"card: {name_limit}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # one nvcc per source, together
-        for built in [pool.submit(f) for f in (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib)]:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:  # one nvcc per source, together
+        for built in [pool.submit(f) for f in (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib)]:
             built.result()
     print(f"kernels built and loaded in {time.perf_counter() - start:.1f} s "
           f"(per library: {_build.build_seconds})", flush=True)
@@ -387,6 +642,7 @@ def main() -> int:
     errors: dict = {}
     kernel_cases(np.random.default_rng(0), errors)
     flash_cases(np.random.default_rng(3), errors)
+    ffn_cases(np.random.default_rng(5), errors)
 
     print("== phase 3: serving slice", flush=True)
     lm = tr.init_lm_params(SERVE, torch.Generator(device=DEV).manual_seed(0), device=DEV)
@@ -402,10 +658,10 @@ def main() -> int:
     reset_launches()
     tokens = tr.lm_generate_batched(lm, prompts, SERVE, N_NEW)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    main_launches = launch_counts()
     expected = SERVE.n_layers * N_REQUESTS
-    check(launches == {"bsr_dsd_stream": expected, "bsr_sdd": expected, **dict.fromkeys(FLASH, 0)},
-          f"kernel launches {launches}, expected {expected} of each sparse kernel and no flash kernel")
+    check(main_launches == launches(bsr_dsd_stream=expected, bsr_sdd=expected),
+          f"kernel launches {main_launches}, expected {expected} of each sparse kernel and no other")
     check(tuple(tokens.shape) == (N_REQUESTS, N_NEW), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < SERVE.vocab)).all()), "token id out of range")
     start = time.perf_counter()
@@ -419,7 +675,7 @@ def main() -> int:
     torch.cuda.synchronize()
     prefill = time.perf_counter() - start
     print(f"{n_params / 1e6:.1f} M parameters; {N_REQUESTS} requests x {N_NEW} tokens; "
-          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+          f"launches { {k: v for k, v in main_launches.items() if v} }", flush=True)
     print(f"first tokens: {tokens[:, :8].tolist()}", flush=True)
     print(f"served in {wall:.3f} s wall: {N_REQUESTS * N_NEW / wall:.1f} generated tokens/s "
           f"(prefill included; informational) on {name_limit}", flush=True)
@@ -522,7 +778,7 @@ def main() -> int:
     for fused in (True, False):
         train_launches[fused] = train_steps(fused, batch, name_limit)
         torch.cuda.empty_cache()
-    launches.update({k: train_launches[True][k] for k in FLASH})
+    main_launches.update({k: train_launches[True][k] for k in FLASH})
 
     print("== phase 7: training slice, fp32: gradients through the kernels against plain versions",
           flush=True)
@@ -530,19 +786,45 @@ def main() -> int:
         fp32_grads_against_plain(fused, batch)
         torch.cuda.empty_cache()
 
+    print(f"== phase 8: the MoE slice at bench width (d_model {MOE.d_model}, {MOE.n_experts} experts "
+          f"of d_ff {MOE.d_ff}, {MOE_TOKENS} tokens, capacity {MOE.capacity})", flush=True)
+    print("(a, b) fp32, kernels against plain versions, launches per forward", flush=True)
+    moe_fp32_against_plain()
+    torch.cuda.empty_cache()
+    print("(c) no host reads", flush=True)
+    moe_no_host_reads()
+    print("(d) fp32 gradients against plain versions", flush=True)
+    moe_fp32_grads()
+    torch.cuda.empty_cache()
+    print(f"(e) bf16 training: {MOE_STEPS} Adam steps, lr {MOE_LR}", flush=True)
+    for impl in ("bsr", "dropless_bsr_fused"):
+        moe_launches = moe_train(impl, name_limit)
+        main_launches.update({k: moe_launches[k] for k in FFN if moe_launches[k]})
+    torch.cuda.empty_cache()
+    print(f"(f) python -m sputnik_tpu_torch.bench.moe, default config, on {name_limit}", flush=True)
+    for line in moe_bench.run(MOE.d_model, MOE.d_ff, MOE.n_experts, MOE_TOKENS, "bfloat16"):
+        print(json.dumps({k: (round(v, 2) if isinstance(v, float) else v) for k, v in line.items()}),
+              flush=True)
+    print("(g) FFN kernel times (CUDA-graph device time, 10 warm-up + 100 timed)", flush=True)
+    times.update(moe_kernel_times(name_limit))
+
     # launches: the serving run of phase 3 for the sparse kernels, the fused
-    # training run of phase 6 for the flash kernels.
+    # training run of phase 6 for the flash kernels, the bf16 MoE training
+    # runs of phase 8 for the FFN kernels.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
         "flash_mha_fwd": ("sputnik_tpu_torch/csrc/flash_mha.cu", "sputnik_tpu/kernels/flash_mha.py:103"),
         "flash_mha_dq": ("sputnik_tpu_torch/csrc/flash_mha.cu", "sputnik_tpu/kernels/flash_mha.py:262"),
         "flash_mha_dkv": ("sputnik_tpu_torch/csrc/flash_mha.cu", "sputnik_tpu/kernels/flash_mha.py:317"),
+        "bsr_ffn_group": ("sputnik_tpu_torch/csrc/bsr_ffn.cu", "sputnik_tpu/kernels/bsr_ffn.py:83"),
+        "bsr_ffn_dropless": ("sputnik_tpu_torch/csrc/bsr_ffn.cu", "sputnik_tpu/kernels/bsr_ffn.py:199"),
     }
+    check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[kname], "max_abs_err": errors[kname],
+         "launches": main_launches[kname], "max_abs_err": errors[kname],
          "ms": times[kname][0][0], "plain_ms": times[kname][1][0]}
         for kname, (src, rep) in sources.items()
     ]}), flush=True)

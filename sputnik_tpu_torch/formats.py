@@ -14,8 +14,11 @@ metadata helpers). The contract is the same:
   * Padding blocks (zero values at a duplicate (row, col)) are legal.
 
 Metadata is int32 everywhere, as in the JAX package. The nnz hints are
-computed on the host from numpy when the matrix is built, before its
-tensors go to a device, so that no later call has to read the device.
+computed on the host when the matrix is built from numpy or CPU metadata,
+before its tensors go to a device, so that no later call has to read the
+device. Metadata already on a CUDA device (built there every step, as the
+dropless MoE's is) is never read back: its hints are the caller's or
+``None``, as the JAX package leaves them for traced metadata.
 """
 
 from __future__ import annotations
@@ -138,23 +141,29 @@ class BlockSparseMatrix:
         max_col_nnz: Optional[int] = None,
     ) -> "BlockSparseMatrix":
         """Build a descriptor. ``offsets``/``indices`` may be numpy arrays or
-        tensors; they are moved to ``data``'s device. The nnz hints are read
-        from host copies, so build from numpy to avoid a device read."""
+        tensors; they are moved to ``data``'s device. The nnz hints are
+        computed from numpy or CPU metadata. Metadata on a CUDA device is
+        not read back (it may be built on the card every step, as the
+        dropless MoE's is): the hints are then the caller's ``max_row_nnz``
+        / ``max_col_nnz`` or ``None``, as the JAX package leaves them for
+        traced metadata."""
         bs = int(data.shape[-1])
         if data.ndim not in (3, 4) or data.shape[-2] != bs:
             raise ValueError(f"data must be ([batch,] nnz_blocks, bs, bs), got {tuple(data.shape)}")
         if shape[0] % bs or shape[1] % bs:
             raise ValueError(f"shape {shape} not divisible by block_size {bs}")
-        off_np = offsets.cpu().numpy() if isinstance(offsets, torch.Tensor) else np.asarray(offsets)
-        idx_np = indices.cpu().numpy() if isinstance(indices, torch.Tensor) else np.asarray(indices)
-        counts = off_np[1:] - off_np[:-1]
-        col_counts = np.bincount(idx_np.astype(np.int64), minlength=shape[1] // bs)
-        if max_row_nnz is None:
-            max_row_nnz = int(counts.max()) if counts.size else 0
-        if max_col_nnz is None:
-            max_col_nnz = int(col_counts.max()) if idx_np.size else 0
-        min_row_nnz = int(counts.min()) if counts.size else 0
-        min_col_nnz = int(col_counts.min()) if idx_np.size else 0
+        min_row_nnz = min_col_nnz = None
+        if not any(isinstance(x, torch.Tensor) and x.is_cuda for x in (offsets, indices)):
+            off_np = offsets.numpy() if isinstance(offsets, torch.Tensor) else np.asarray(offsets)
+            idx_np = indices.numpy() if isinstance(indices, torch.Tensor) else np.asarray(indices)
+            counts = off_np[1:] - off_np[:-1]
+            col_counts = np.bincount(idx_np.astype(np.int64), minlength=shape[1] // bs)
+            if max_row_nnz is None:
+                max_row_nnz = int(counts.max()) if counts.size else 0
+            if max_col_nnz is None:
+                max_col_nnz = int(col_counts.max()) if idx_np.size else 0
+            min_row_nnz = int(counts.min()) if counts.size else 0
+            min_col_nnz = int(col_counts.min()) if idx_np.size else 0
         device = data.device
         offsets = _as_int32(offsets, device)
         indices = _as_int32(indices, device)

@@ -12,6 +12,8 @@ from sputnik_tpu_torch.models.moe import (
     MoE,
     MoEConfig,
     block_diag_topology,
+    dropless_moe_forward,
+    dropless_topology,
     init_moe_params,
     moe_forward,
     moe_loss,
@@ -36,7 +38,8 @@ from sputnik_tpu_torch.models.transformer import (
 __all__ = [
     "band_topology", "block_sparse_attention", "causal_block_topology", "decode_band_attention",
     "multihead_block_sparse_attention", "params_from_numpy", "grads_to_numpy", "MoE", "MoEConfig",
-    "block_diag_topology", "init_moe_params", "moe_forward", "moe_loss", "Block", "SparseLM",
+    "block_diag_topology", "dropless_moe_forward", "dropless_topology", "init_moe_params",
+    "moe_forward", "moe_loss", "Block", "SparseLM",
     "TransformerConfig", "block_decode", "block_forward", "init_decode_caches", "init_lm_params",
     "lm_decode_step", "lm_forward", "lm_generate", "lm_generate_batched", "lm_loss", "lm_prefill",
     "lm_topologies",

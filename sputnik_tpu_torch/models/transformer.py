@@ -173,12 +173,13 @@ def block_forward(
 def lm_topologies(cfg: TransformerConfig, device=None):
     """(attention topology, moe topology) on ``device``: build once, reuse.
     The attention topology carries its transpose metadata, which the
-    backward's column walks read. The grouped MoE reads no topology, so the
-    second is None until ``impl="bsr"`` is ported."""
+    backward's column walks read; the MoE topology is the block-diagonal
+    one of ``cfg.moe_cfg()`` (the LM's grouped MoE does not read it; the
+    bsr impls of ``moe_forward`` do)."""
     topo = attn_lib.causal_block_topology(
         cfg.seq_len, block_size=128, window_blocks=cfg.window_blocks, dtype=cfg.dtype, device=device
     )
-    return topo.with_transpose_metadata(), None
+    return topo.with_transpose_metadata(), moe_lib.block_diag_topology(cfg.moe_cfg(), device=device)
 
 
 def lm_forward(params: SparseLM, tokens: torch.Tensor, cfg: TransformerConfig, topos=None):

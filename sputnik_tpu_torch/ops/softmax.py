@@ -26,7 +26,12 @@ __all__ = ["bsr_softmax"]
 def _row_slots(m: BlockSparseMatrix):
     """(slots, valid): ``(block_rows, max_row_nnz)`` positions in ``data``
     of each block-row's blocks, and which of them are real."""
-    width = max(m.max_row_nnz or 0, 1)
+    if m.max_row_nnz is None:
+        raise ValueError(
+            "bsr_softmax needs the topology's max_row_nnz hint; metadata built on a CUDA "
+            "device has none unless BlockSparseMatrix.create is given it"
+        )
+    width = max(m.max_row_nnz, 1)
     starts = m.offsets[:-1].long()
     slots = starts[:, None] + torch.arange(width, device=m.offsets.device)[None, :]
     valid = slots < m.offsets[1:].long()[:, None]

@@ -1,7 +1,9 @@
 """The port on a CUDA card: the Hopper kernels against their plain versions,
-the registry's CUDA routing, and the small LM through the kernels against
+the registry's CUDA routing, the small LM through the kernels against
 the same LM on the CPU (serving logits, and training gradients on both
-attention routes).
+attention routes), and the MoE paths: the fused FFN kernels, metadata
+built on the card without a device read, and every MoE forward and the
+fused paths' gradients against the CPU.
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -16,9 +18,10 @@ import pytest
 import torch
 
 from sputnik_tpu_torch import ops
-from sputnik_tpu_torch.kernels import bsr_dsd, bsr_sdd, reference
+from sputnik_tpu_torch.formats import BlockSparseMatrix
+from sputnik_tpu_torch.kernels import bsr_dsd, bsr_ffn, bsr_sdd, reference
 from sputnik_tpu_torch.kernels import flash_mha as fm
-from sputnik_tpu_torch.models import attention
+from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.models.convert import grads_to_numpy
 from sputnik_tpu_torch.ops import registry
@@ -205,3 +208,87 @@ def test_small_lm_grads_on_card_match_cpu(cuda, fused):
     got, want = grads_to_numpy(gpu), grads_to_numpy(cpu)
     for name, g in want.items():
         assert float(np.abs(got[name] - g).max()) <= 1e-3 * float(np.abs(g).max()) + 1e-6, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ffn_kernels_match_plain(cuda, dtype):
+    """Both FFN kernels against their plain versions, fp32 outputs, within
+    the reference ATOL: the group kernel on a permuted two-row-per-group
+    layout and d_model 384 (one 128-column accumulator per CTA), the
+    dropless kernel on dead tiles (live rows only)."""
+    rng = np.random.default_rng(6)
+    d, d_ff, n_exp = 384, 256, 3
+    x = _randn(rng, (6 * BS, d), cuda, dtype)
+    w1 = _randn(rng, (d, n_exp * d_ff), cuda, dtype) * d ** -0.5
+    w2 = _randn(rng, (n_exp * d_ff, d), cuda, dtype) * d_ff ** -0.5
+    cols = torch.tensor([5, 4, 0, 1, 3, 2], dtype=torch.int32, device=cuda)
+    before = dict(bsr_ffn.LAUNCHES)
+    for act in ("gelu", "relu", "identity"):
+        got = bsr_ffn.group_ffn(x, w1, w2, cols, 2, activation=act, out_dtype=torch.float32)
+        want = bsr_ffn.fused_group_ffn_reference(x, w1, w2, cols, 2, activation=act, out_dtype=torch.float32)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    e_row = torch.tensor([2, 0, 0], dtype=torch.int32, device=cuda)
+    live = torch.tensor(2, dtype=torch.int32, device=cuda)
+    kw = dict(tile_rows=2 * BS, live_rows=live, out_dtype=torch.float32)
+    got = bsr_ffn.dropless_ffn(x, w1, w2, e_row, d_ff, **kw)
+    want = bsr_ffn.fused_dropless_ffn_reference(x, w1, w2, e_row, d_ff, **kw)
+    torch.testing.assert_close(got[:4 * BS], want[:4 * BS], atol=ATOL, rtol=0)
+    assert bsr_ffn.LAUNCHES == {"bsr_ffn_group": before["bsr_ffn_group"] + 3,
+                                "bsr_ffn_dropless": before["bsr_ffn_dropless"] + 1}
+    with pytest.raises(ValueError, match="one dtype"):
+        bsr_ffn.group_ffn(x, w1.float() if dtype == torch.bfloat16 else w1.bfloat16(), w2, cols, 2)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        bsr_ffn.group_ffn(x[:, :200].contiguous(), w1[:200].contiguous(), w2[:, :200].contiguous(), cols, 2)
+    assert registry.dispatch_name("fused_group_ffn", x, w1, w2, cols, 2) == "cuda_ffn"
+
+
+def test_metadata_built_on_card_reads_nothing_back(cuda):
+    """create() on CUDA metadata and dropless_topology() run under
+    torch.cuda.set_sync_debug_mode("error"): no device read. The hints are
+    the caller's or None; the metadata equals the CPU build's."""
+    cfg = moe.MoEConfig(d_model=256, d_ff=256, n_experts=4, capacity=128, dtype=torch.float32)
+    rows = torch.tensor([2, 0, 1, 3], device=cuda)
+    offsets = torch.arange(4, dtype=torch.int32, device=cuda) * 2
+    indices = torch.tensor([0, 1, 1, 2, 0, 3], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = BlockSparseMatrix.create(torch.zeros(6, BS, BS, device=cuda), offsets, indices, (3 * BS, 4 * BS),
+                                     max_row_nnz=2)
+        topo = moe.dropless_topology(rows, cfg, 9)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (m.max_row_nnz, m.max_col_nnz, m.min_row_nnz, m.min_col_nnz) == (2, None, None, None)
+    assert topo.max_row_nnz == 2 and topo.max_col_nnz is None
+    want = moe.dropless_topology(rows.cpu(), cfg, 9)
+    for name in ("offsets", "indices", "row_indices"):
+        assert torch.equal(getattr(topo, name).cpu(), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("impl", ["grouped", "bsr", "bsr_unfused", "dropless_ragged", "dropless_bsr",
+                                  "dropless_bsr_fused"])
+def test_moe_forwards_on_card_match_cpu(cuda, impl):
+    """Each MoE forward on the card against the same weights on the CPU,
+    fp32: y within 1e-4, the exact aux loss up to rounding; the fused
+    impls' gradients within 1e-3 * max|g|."""
+    cfg = moe.MoEConfig(d_model=256, d_ff=256, n_experts=4, capacity=128, dtype=torch.float32)
+    cpu = moe.init_moe_params(cfg, torch.Generator().manual_seed(0))
+    gpu = moe.MoE(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((600, 256)).astype(np.float32))
+    outs = []
+    for params, device in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        xd = x.to(device).requires_grad_()
+        topo = moe.block_diag_topology(cfg, device=device)
+        if impl.startswith("dropless_"):
+            y, aux = moe.dropless_moe_forward(params, xd, cfg, impl=impl[len("dropless_"):])
+        else:
+            y, aux = moe.moe_forward(params, xd, cfg, topo, impl=impl)
+        (torch.mean(y ** 2) + 0.01 * aux).backward()
+        outs.append((y.detach().cpu(), aux.item(), grads_to_numpy(params), xd.grad.cpu().numpy()))
+    torch.testing.assert_close(outs[0][0], outs[1][0], atol=1e-4, rtol=0)
+    assert abs(outs[0][1] - outs[1][1]) <= 1e-5
+    if impl in ("bsr", "dropless_bsr_fused"):
+        for name, g in [*outs[1][2].items(), ("x", outs[1][3])]:
+            got = outs[0][2][name] if name != "x" else outs[0][3]
+            assert float(np.abs(got - g).max()) <= 1e-3 * float(np.abs(g).max()) + 1e-6, name
