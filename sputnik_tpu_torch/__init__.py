@@ -9,15 +9,30 @@ fused MoE FFN on two more (``csrc/bsr_ffn.cu``: group-structured and
 dropless), all built with nvcc for sm_90a on first use; the BSR softmax,
 block-sparse attention, the MoE FFN (grouped, block-sparse fused and
 unfused, and dropless on a topology built on the device every step), the
-MoE benchmark, and the sparse LM's serving path and training loss. It
+MoE benchmark, and the sparse LM's serving path and training loss; the
+CSR engine (``CsrMatrix``, ``EllMatrix``, ``SellMatrix``, ``ops.csr``: SpMM,
+its transpose, SDDMM and sparse softmax with gradients) on four more
+(``csrc/sell.cu``), the DLMC pruning utilities and the DLMC benchmark.
+Entry points build on the CUDA card unless given ``device="cpu"``. It
 imports torch and never jax.
 """
 
 from sputnik_tpu_torch import models, ops
-from sputnik_tpu_torch.formats import BlockSparseMatrix, bsr_from_dense, bsr_to_dense
+from sputnik_tpu_torch.formats import (
+    BlockSparseMatrix,
+    CsrMatrix,
+    EllMatrix,
+    SellMatrix,
+    bsr_from_dense,
+    bsr_to_dense,
+    csr_from_dense,
+    csr_to_dense,
+    sorted_row_swizzle,
+)
 from sputnik_tpu_torch.ops import matmul_dds, matmul_dsd, matmul_sdd
 
 __all__ = [
     "BlockSparseMatrix", "bsr_from_dense", "bsr_to_dense", "models", "ops",
     "matmul_dsd", "matmul_dds", "matmul_sdd",
+    "CsrMatrix", "EllMatrix", "SellMatrix", "csr_from_dense", "csr_to_dense", "sorted_row_swizzle",
 ]

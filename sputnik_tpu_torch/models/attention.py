@@ -19,6 +19,7 @@ import torch
 from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels.flash_mha import flash_mha
+from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "band_topology",
@@ -30,6 +31,7 @@ __all__ = [
 
 
 def _topology_from_mask(mask: np.ndarray, t: int, bs: int, dtype, device) -> BlockSparseMatrix:
+    device = resolve_device(device)
     rows, cols = np.nonzero(mask)
     order = np.lexsort((cols, rows))
     rows, cols = rows[order], cols[order]
@@ -43,7 +45,8 @@ def band_topology(
     dtype=torch.bfloat16, device=None, global_blocks: int = 0,
 ) -> BlockSparseMatrix:
     """Banded (local-window) score topology, optionally with leading global
-    blocks attending everywhere and attended by everyone."""
+    blocks attending everywhere and attended by everyone. ``device=None``
+    builds on the card."""
     nb = seq_len // block_size
     r = np.arange(nb)[:, None]
     c = np.arange(nb)[None, :]
@@ -59,7 +62,8 @@ def causal_block_topology(
     dtype=torch.bfloat16, device=None,
 ) -> BlockSparseMatrix:
     """Block-lower-triangular topology, optionally banded; use with
-    ``bsr_softmax(..., causal=True)`` for exact causal attention."""
+    ``bsr_softmax(..., causal=True)`` for exact causal attention.
+    ``device=None`` builds on the card."""
     nb = seq_len // block_size
     r = np.arange(nb)[:, None]
     c = np.arange(nb)[None, :]

@@ -58,7 +58,8 @@ def load_numpy_(module: nn.Module, tree) -> nn.Module:
 
 
 def params_from_numpy(tree, cfg: TransformerConfig, *, device=None) -> SparseLM:
-    """A :class:`SparseLM` on ``device`` holding the JAX parameters ``tree``."""
+    """A :class:`SparseLM` on ``device`` (``None``: the card) holding the JAX
+    parameters ``tree``."""
     return load_numpy_(SparseLM(cfg, device=device), tree)
 
 

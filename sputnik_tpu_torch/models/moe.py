@@ -41,6 +41,7 @@ from torch import nn
 from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels import bsr_ffn
+from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "MoEConfig", "MoE", "block_diag_topology", "init_moe_params", "moe_forward", "moe_loss",
@@ -73,10 +74,12 @@ class MoEConfig:
 
 class MoE(nn.Module):
     """Parameters of one MoE FFN, all trainable: ``router`` (d, E) fp32,
-    ``w1`` (d, E*F) and ``w2`` (E*F, d) in the model dtype."""
+    ``w1`` (d, E*F) and ``w2`` (E*F, d) in the model dtype, on ``device``
+    (``None``: the card)."""
 
     def __init__(self, cfg: MoEConfig, *, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d, ef = cfg.d_model, cfg.ff_total
         p = lambda *shape, dtype: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))  # noqa: E731
@@ -97,7 +100,7 @@ def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
 
 def init_moe_params(cfg: MoEConfig, generator: torch.Generator, device=None) -> MoE:
     """An :class:`MoE` on ``device`` with random weights from ``generator``,
-    at the JAX package's scales."""
+    at the JAX package's scales (``device=None``: the card)."""
     m = MoE(cfg, device=device)
     normal_(m.router, 1.0 / math.sqrt(cfg.d_model), generator)
     normal_(m.w1, 1.0 / math.sqrt(cfg.d_model), generator)
@@ -108,7 +111,9 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator, device=None) -> 
 def block_diag_topology(cfg: MoEConfig, device=None) -> BlockSparseMatrix:
     """Block-diagonal topology: expert e's capacity rows hit only its own
     d_ff columns. Built from numpy, so its fused-FFN plan is made and cached
-    here, with its column ids on ``device``: a forward reads nothing back."""
+    here, with its column ids on ``device`` (``None``: the card): a forward
+    reads nothing back."""
+    device = resolve_device(device)
     bs = cfg.block_size
     rows_per, cols_per = cfg.capacity // bs, cfg.d_ff // bs
     e = np.arange(cfg.n_experts)[:, None, None]

@@ -33,6 +33,7 @@ from torch import nn
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.models import attention as attn_lib
 from sputnik_tpu_torch.models import moe as moe_lib
+from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "TransformerConfig",
@@ -87,10 +88,12 @@ def _param(*shape, dtype, device):
 
 
 class Block(nn.Module):
-    """One transformer block's parameters (JAX: ``params["blocks"][i]``)."""
+    """One transformer block's parameters (JAX: ``params["blocks"][i]``), on
+    ``device`` (``None``: the card)."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
+        device = resolve_device(device)
         d = cfg.d_model
         self.wqkv = _param(d, 3 * d, dtype=cfg.dtype, device=device)
         self.wo = _param(d, d, dtype=cfg.dtype, device=device)
@@ -101,10 +104,12 @@ class Block(nn.Module):
 
 
 class SparseLM(nn.Module):
-    """The sparse LM's parameters; ``forward(tokens)`` is :func:`lm_forward`."""
+    """The sparse LM's parameters on ``device`` (``None``: the card);
+    ``forward(tokens)`` is :func:`lm_forward`."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         d = cfg.d_model
         self.embed = _param(cfg.vocab, d, dtype=cfg.dtype, device=device)
@@ -118,7 +123,9 @@ class SparseLM(nn.Module):
 
 def init_lm_params(cfg: TransformerConfig, generator: torch.Generator, device=None) -> SparseLM:
     """A :class:`SparseLM` with random weights drawn from ``generator`` at the
-    JAX package's scales (normal / sqrt(fan-in)); layernorms start at 1, 0."""
+    JAX package's scales (normal / sqrt(fan-in)); layernorms start at 1, 0.
+    ``device=None`` builds on the card."""
+    device = resolve_device(device)
     lm = SparseLM(cfg, device=device)
     s = 1.0 / math.sqrt(cfg.d_model)
     moe_lib.normal_(lm.embed, s, generator)
@@ -175,7 +182,7 @@ def lm_topologies(cfg: TransformerConfig, device=None):
     The attention topology carries its transpose metadata, which the
     backward's column walks read; the MoE topology is the block-diagonal
     one of ``cfg.moe_cfg()`` (the LM's grouped MoE does not read it; the
-    bsr impls of ``moe_forward`` do)."""
+    bsr impls of ``moe_forward`` do). ``device=None`` builds on the card."""
     topo = attn_lib.causal_block_topology(
         cfg.seq_len, block_size=128, window_blocks=cfg.window_blocks, dtype=cfg.dtype, device=device
     )
@@ -212,9 +219,11 @@ def lm_loss(params: SparseLM, tokens: torch.Tensor, cfg: TransformerConfig, topo
 
 def init_decode_caches(cfg: TransformerConfig, max_len: int, *, device=None) -> Caches:
     """Per-layer {"k", "v"} caches of shape (H, max_len, dh), zero-filled;
-    ``max_len`` must be a multiple of 128 (the page size)."""
+    ``max_len`` must be a multiple of 128 (the page size). ``device=None``
+    builds on the card."""
     if max_len % 128:
         raise ValueError(f"max_len {max_len} must be a multiple of 128")
+    device = resolve_device(device)
     shape = (cfg.n_heads, max_len, cfg.d_head)
     return [
         {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),

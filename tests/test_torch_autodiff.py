@@ -44,7 +44,7 @@ def _sparse_pair(rng, rows, cols):
     r_ids, c_ids = _blocks(rng, rows, cols)
     blocks = rng.standard_normal((len(r_ids), BS, BS)).astype(np.float32)
     jm = jtesting.bsr_from_blocks(rows, cols, r_ids, c_ids, blocks)
-    tm = testing.bsr_from_blocks(rows, cols, r_ids, c_ids, blocks)
+    tm = testing.bsr_from_blocks(rows, cols, r_ids, c_ids, blocks, device="cpu")
     return jm, tm
 
 
@@ -133,7 +133,7 @@ def test_bsr_softmax_causal_grad_matches_jax(topo_kind):
     t = 512
     if topo_kind == "causal_band":
         jtopo = jattn.causal_block_topology(t, BS, window_blocks=3, dtype=jnp.float32)
-        ttopo = attention.causal_block_topology(t, BS, window_blocks=3, dtype=torch.float32)
+        ttopo = attention.causal_block_topology(t, BS, window_blocks=3, dtype=torch.float32, device="cpu")
     else:  # above-diagonal blocks are fully masked; block-row 1 is empty
         jtopo, ttopo = _sparse_pair(rng, t, t)
     x = _dense(rng, tuple(ttopo.data.shape))

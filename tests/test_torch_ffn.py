@@ -62,14 +62,14 @@ def test_plan_group_ffn_matches_jax(kind):
     if kind == "block_diag":
         kw = dict(d_model=128, d_ff=256, n_experts=2, capacity=256)
         jt = jmoe.block_diag_topology(jmoe.MoEConfig(dtype=jnp.float32, **kw))
-        tt = moe.block_diag_topology(moe.MoEConfig(dtype=torch.float32, **kw))
+        tt = moe.block_diag_topology(moe.MoEConfig(dtype=torch.float32, **kw), device="cpu")
     elif kind == "permuted":
         jt, tt = _pair(*_group_layout(rng, 4, 2, 3, permuted=True))
     elif kind == "random":
         # The packages draw identically from one seed: rows that do not
         # share column runs.
         jt = jtesting.random_bsr(np.random.default_rng(5), 512, 512, 512 * 512 // 4, BS)
-        tt = testing.random_bsr(np.random.default_rng(5), 512, 512, 512 * 512 // 4, BS)
+        tt = testing.random_bsr(np.random.default_rng(5), 512, 512, 512 * 512 // 4, BS, device="cpu")
     elif kind == "unequal_groups":
         jt, tt = _pair([0, 2, 4, 6], [0, 1, 0, 1, 2, 3], (3 * BS, 4 * BS))
     else:

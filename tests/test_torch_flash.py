@@ -34,19 +34,21 @@ def _topologies(kind, rng):
     if kind == "causal_band":
         t = 512
         return (jattn.causal_block_topology(t, BS, window_blocks=2, dtype=jnp.float32),
-                attention.causal_block_topology(t, BS, window_blocks=2, dtype=torch.float32), t, t, True)
+                attention.causal_block_topology(t, BS, window_blocks=2, dtype=torch.float32, device="cpu"),
+                t, t, True)
     if kind == "random":
         seed = int(rng.integers(1 << 30))
         jm = jtesting.random_bsr(np.random.default_rng(seed), 512, 512, 512 * 512 // 3, BS, unordered=True)
-        tm = testing.random_bsr(np.random.default_rng(seed), 512, 512, 512 * 512 // 3, BS, unordered=True)
+        tm = testing.random_bsr(np.random.default_rng(seed), 512, 512, 512 * 512 // 3, BS, unordered=True,
+                                device="cpu")
         return jm, tm, 512, 512, False
     if kind == "empty_row_col":  # tests/test_flash_attention.py:131-136
         args = (384, 512, [0, 0, 2], [3, 0, 0], ONES)
-        return jtesting.bsr_from_blocks(*args), testing.bsr_from_blocks(*args), 384, 512, False
+        return jtesting.bsr_from_blocks(*args), testing.bsr_from_blocks(*args, device="cpu"), 384, 512, False
     # rectangular K/V: more keys than queries
     seed = int(rng.integers(1 << 30))
     jm = jtesting.random_bsr(np.random.default_rng(seed), 256, 512, 256 * 512 // 3, BS)
-    tm = testing.random_bsr(np.random.default_rng(seed), 256, 512, 256 * 512 // 3, BS)
+    tm = testing.random_bsr(np.random.default_rng(seed), 256, 512, 256 * 512 // 3, BS, device="cpu")
     return jm, tm, 256, 512, False
 
 
@@ -80,7 +82,8 @@ def test_flash_mha_matches_jax(kind):
 def test_fully_masked_causal_row_is_zero():
     """A row whose only block lies above the diagonal comes out zero, with
     zero gradient, not NaN (tests/test_flash_attention.py:79)."""
-    topo = testing.bsr_from_blocks(384, 384, [0, 1, 1, 2], [2, 0, 1, 2], np.ones((4, BS, BS), np.float32))
+    topo = testing.bsr_from_blocks(384, 384, [0, 1, 1, 2], [2, 0, 1, 2], np.ones((4, BS, BS), np.float32),
+                                   device="cpu")
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 384, 128)).astype(np.float32)).requires_grad_()
                for _ in range(3))
@@ -109,7 +112,7 @@ def test_single_head_fused_attention_matches_jax():
 def test_checks_and_dispatch():
     """JAX's argument checks, the empty topology, the registry's routing,
     and the kernel wrappers refusing CPU tensors."""
-    topo = attention.causal_block_topology(384, BS, window_blocks=2, dtype=torch.float32)
+    topo = attention.causal_block_topology(384, BS, window_blocks=2, dtype=torch.float32, device="cpu")
     q = torch.zeros(1, 384, 128)
     for bad in (0, 9):
         with pytest.raises(ValueError, match="rows_per_step"):
@@ -118,7 +121,7 @@ def test_checks_and_dispatch():
         fm.flash_mha(q, q, q, topo, rows_per_step=2)  # 3 query block-rows
     with pytest.raises(ValueError, match="group"):
         fm.flash_mha(q, q, q, topo, group=0)
-    empty = testing.bsr_from_blocks(384, 384, [], [], np.zeros((0, BS, BS), np.float32))
+    empty = testing.bsr_from_blocks(384, 384, [], [], np.zeros((0, BS, BS), np.float32), device="cpu")
     assert not fm.flash_mha(q + 1, q, q, empty).any()
     assert registry.dispatch_name("flash_mha", q, q, q, topo) == "torch_reference"
     with registry.forced_variant("cuda_flash"):

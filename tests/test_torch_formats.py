@@ -33,7 +33,7 @@ def _pair(seed, rows, cols, density, unordered):
     nnz = max(int(rows * cols * density), BS * BS)
     kw = dict(unordered=unordered)
     jm = jtesting.random_bsr(np.random.default_rng(seed), rows, cols, nnz, BS, dtype=jnp.float32, **kw)
-    tm = testing.random_bsr(np.random.default_rng(seed), rows, cols, nnz, BS, **kw)
+    tm = testing.random_bsr(np.random.default_rng(seed), rows, cols, nnz, BS, device="cpu", **kw)
     return jm, tm
 
 
@@ -73,7 +73,7 @@ def test_bsr_from_dense_matches_jax(rng):
 
 
 def test_batched_data_densifies_per_entry(rng):
-    tm = testing.random_bsr(rng, 512, 256, 512 * 256 // 3, BS, unordered=True)
+    tm = testing.random_bsr(rng, 512, 256, 512 * 256 // 3, BS, unordered=True, device="cpu")
     batch = torch.from_numpy(rng.standard_normal((3,) + tuple(tm.data.shape)).astype(np.float32))
     dense = tm.with_data(batch).to_dense()
     assert dense.shape == (3, 512, 256)
@@ -85,15 +85,17 @@ def test_create_validates_and_moves(rng):
     with pytest.raises(ValueError, match="divisible"):
         formats.BlockSparseMatrix.create(torch.zeros(1, BS, BS), [0, 1], [0], (BS + 1, BS))
     with pytest.raises(ValueError, match="does not fit"):
-        testing.random_bsr(rng, 256, 256, BS * BS, BS).with_data(torch.zeros(2, 64, 64))
-    m = testing.random_bsr(rng, 256, 256, 2 * BS * BS, BS).with_transpose_metadata().to("cpu")
+        testing.random_bsr(rng, 256, 256, BS * BS, BS, device="cpu").with_data(torch.zeros(2, 64, 64))
+    m = testing.random_bsr(rng, 256, 256, 2 * BS * BS, BS, device="cpu").with_transpose_metadata().to("cpu")
     assert all(t.device.type == "cpu" for t in (m.data, m.offsets, m.offsets_t, m.block_offsets))
 
 
 def test_port_never_imports_jax():
     code = (
         "import sys, sputnik_tpu_torch, sputnik_tpu_torch.models, sputnik_tpu_torch.kernels.bsr_dsd, "
-        "sputnik_tpu_torch.kernels.bsr_sdd, sputnik_tpu_torch.models.convert; "
+        "sputnik_tpu_torch.kernels.bsr_sdd, sputnik_tpu_torch.models.convert, sputnik_tpu_torch.kernels.sell, "
+        "sputnik_tpu_torch.ops.csr, sputnik_tpu_torch.utils.dlmc, sputnik_tpu_torch.utils.dlmc_gen, "
+        "sputnik_tpu_torch.bench.dlmc, sputnik_tpu_torch.bench.moe, chip_smoke; "
         "bad = [m for m in sys.modules if m in ('jax', 'sputnik_tpu') or m.startswith(('jax.', 'sputnik_tpu.'))]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )

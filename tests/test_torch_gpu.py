@@ -1,9 +1,11 @@
 """The port on a CUDA card: the Hopper kernels against their plain versions,
 the registry's CUDA routing, the small LM through the kernels against
 the same LM on the CPU (serving logits, and training gradients on both
-attention routes), and the MoE paths: the fused FFN kernels, metadata
+attention routes), the MoE paths (the fused FFN kernels, metadata
 built on the card without a device read, and every MoE forward and the
-fused paths' gradients against the CPU.
+fused paths' gradients against the CPU), and the CSR engine's SELL
+kernels (against their plain versions, run to run, and with no host read
+in the ops' forwards and backwards).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -11,6 +13,7 @@ no jax, so it runs on a machine that has only the port's dependencies:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -18,12 +21,13 @@ import pytest
 import torch
 
 from sputnik_tpu_torch import ops
-from sputnik_tpu_torch.formats import BlockSparseMatrix
-from sputnik_tpu_torch.kernels import bsr_dsd, bsr_ffn, bsr_sdd, reference
+from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
+from sputnik_tpu_torch.kernels import bsr_dsd, bsr_ffn, bsr_sdd, reference, sell
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.models.convert import grads_to_numpy
+from sputnik_tpu_torch.ops import csr as csr_ops
 from sputnik_tpu_torch.ops import registry
 from sputnik_tpu_torch.utils import testing
 from sputnik_tpu_torch.utils.testing import ATOL
@@ -111,7 +115,7 @@ def test_small_lm_on_card_matches_cpu(cuda):
     through the plain versions on the CPU, fp32: logits and greedy tokens."""
     cfg = tr.TransformerConfig(d_model=256, n_heads=2, seq_len=512, window_blocks=2, n_experts=2,
                                d_ff=128, n_layers=2, vocab=128, dtype=torch.float32)
-    cpu = tr.init_lm_params(cfg, torch.Generator().manual_seed(0))
+    cpu = tr.init_lm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     gpu = tr.SparseLM(cfg, device=cuda)
     gpu.load_state_dict(cpu.state_dict())
     tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 256)))
@@ -188,7 +192,7 @@ def test_small_lm_grads_on_card_match_cpu(cuda, fused):
     every parameter's gradient within 1e-3 * max|g|."""
     cfg = tr.TransformerConfig(d_model=256, n_heads=2, seq_len=512, window_blocks=2, n_experts=2,
                                d_ff=128, n_layers=2, vocab=128, dtype=torch.float32, fused_attention=fused)
-    cpu = tr.init_lm_params(cfg, torch.Generator().manual_seed(0))
+    cpu = tr.init_lm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     gpu = tr.SparseLM(cfg, device=cuda)
     gpu.load_state_dict(cpu.state_dict())
     tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, cfg.seq_len))
@@ -272,7 +276,7 @@ def test_moe_forwards_on_card_match_cpu(cuda, impl):
     fp32: y within 1e-4, the exact aux loss up to rounding; the fused
     impls' gradients within 1e-3 * max|g|."""
     cfg = moe.MoEConfig(d_model=256, d_ff=256, n_experts=4, capacity=128, dtype=torch.float32)
-    cpu = moe.init_moe_params(cfg, torch.Generator().manual_seed(0))
+    cpu = moe.init_moe_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     gpu = moe.MoE(cfg, device=cuda)
     gpu.load_state_dict(cpu.state_dict())
     x = torch.from_numpy(np.random.default_rng(7).standard_normal((600, 256)).astype(np.float32))
@@ -292,3 +296,88 @@ def test_moe_forwards_on_card_match_cpu(cuda, impl):
         for name, g in [*outs[1][2].items(), ("x", outs[1][3])]:
             got = outs[0][2][name] if name != "x" else outs[0][3]
             assert float(np.abs(got - g).max()) <= 1e-3 * float(np.abs(g).max()) + 1e-6, name
+
+
+# ------------------------------------------------------------ CSR engine --
+def _sell_on_card(rng, rows, cols, density, cuda, dtype, **kw):
+    c = testing.random_csr(rng, rows, cols, int(rows * cols * density), dtype=dtype, device=cuda)
+    return SellMatrix.from_csr(c, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk,sort_rows", [(128, False), ("auto", True), (64, True)])
+def test_sell_kernels_match_plain(cuda, dtype, chunk, sort_rows):
+    """Each SELL kernel against its plain version on the same card tensors:
+    fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp (floored at
+    2^-8 * max|plain|, testing.bf16_ulp_excess); two runs of a
+    kernel bitwise equal; one launch each."""
+    rng = np.random.default_rng(11)
+    s = _sell_on_card(rng, 300, 520, 0.08, cuda, dtype, chunk=chunk, sort_rows=sort_rows)
+    b, x = _randn(rng, (520, 96), cuda, dtype), _randn(rng, (300, 96), cuda, dtype)
+    q, k = _randn(rng, (300, 64), cuda, dtype), _randn(rng, (520, 64), cuda, dtype)
+    sentinel = dataclasses.replace(s, slot_counts=None)
+    pairs = {
+        "sell_spmm": (lambda: sell.spmm(s, b), lambda: sell.spmm_reference(s, b)),
+        "sell_spmm_t": (lambda: sell.spmm_t(s, x), lambda: sell.spmm_t_reference(s, x)),
+        "sell_sddmm": (lambda: sell.sddmm(q, k, s).values, lambda: sell.sddmm_reference(q, k, s).values),
+        "sell_softmax": (lambda: sell.sparse_softmax(s, scale=0.5).values,
+                         lambda: sell.sparse_softmax_reference(s, scale=0.5).values),
+        "sell_softmax_sentinel": (lambda: sell.sparse_softmax(sentinel, scale=0.5).values,
+                                  lambda: sell.sparse_softmax_reference(sentinel, scale=0.5).values),
+    }
+    for name, (kernel, plain) in pairs.items():
+        before = dict(sell.LAUNCHES)
+        got = kernel()
+        kname = name.replace("_sentinel", "")
+        assert sell.LAUNCHES[kname] == before[kname] + 1, name
+        again, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{name}: two runs differ"
+        diff = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 1e-4 * float(want.abs().max()), name
+        else:
+            assert testing.bf16_ulp_excess(got, want) <= 1, name
+
+
+def test_sell_ops_read_nothing_back(cuda):
+    """spmm on a weight and the chain sddmm -> softmax -> spmm on the
+    kernels, forward and backward, under set_sync_debug_mode("error"); fp32
+    gradients within 1e-4 * max|g| of the plain path, padding slots with
+    zero gradient."""
+    rng = np.random.default_rng(12)
+    w = _sell_on_card(rng, 256, 384, 0.1, cuda, torch.float32, chunk="auto", sort_rows=True)
+    topo = _sell_on_card(rng, 256, 256, 0.1, cuda, torch.float32, sort_rows=True)
+    b = _randn(rng, (384, 64), cuda, torch.float32)
+    q, k, v = (_randn(rng, (256, 64), cuda, torch.float32) for _ in range(3))
+    grads = []
+    for plain in (False, True):
+        values = w.values.clone().requires_grad_()
+        inputs = [t.clone().requires_grad_() for t in (b, q, k, v)]
+        bb, qq, kk, vv = inputs
+        torch.cuda.synchronize()
+        if not plain:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+                y = csr_ops.spmm(w.with_values(values), bb)
+                p = csr_ops.sparse_softmax(csr_ops.sddmm(qq, kk, topo), scale=0.125)
+                z = csr_ops.spmm(p, vv)
+                (y.square().mean() + z.square().mean()).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        grads.append([values.grad] + [t.grad for t in inputs])
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-6
+    assert not grads[0][0][~w.valid_mask()].any()
+
+
+def test_sell_wrappers_raise_on_cuda(cuda):
+    """A CUDA problem the kernels do not take raises; it never falls back."""
+    rng = np.random.default_rng(13)
+    s = _sell_on_card(rng, 256, 256, 0.1, cuda, torch.float32)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        sell.spmm(s, torch.zeros(256, 64, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sell.spmm(s, torch.zeros(256, 64))
+    assert registry.dispatch_name("sell_spmm", s, torch.zeros(256, 64, device=cuda)) == "cuda_sell"

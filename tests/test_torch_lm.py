@@ -30,7 +30,7 @@ def models():
     jcfg = jtr.TransformerConfig(dtype=jnp.float32, **CFG)
     tcfg = tr.TransformerConfig(dtype=torch.float32, **CFG)
     jparams = jtr.init_lm_params(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     tokens = np.random.default_rng(11).integers(0, CFG["vocab"], (2, CFG["seq_len"])).astype(np.int32)
     return jcfg, jparams, tcfg, tparams, tokens
 

@@ -24,18 +24,18 @@ def _same_topology(t, j):
 @pytest.mark.parametrize("kind", ["causal", "band", "band_global"])
 def test_topologies_match_jax(kind):
     if kind == "causal":
-        t = attention.causal_block_topology(1024, window_blocks=4)
+        t = attention.causal_block_topology(1024, window_blocks=4, device="cpu")
         j = jattn.causal_block_topology(1024, window_blocks=4)
     else:
         g = 1 if kind == "band_global" else 0
-        t = attention.band_topology(1024, 2, global_blocks=g)
+        t = attention.band_topology(1024, 2, global_blocks=g, device="cpu")
         j = jattn.band_topology(1024, 2, global_blocks=g)
     _same_topology(t, j)
 
 
 def test_block_diag_topology_matches_jax():
     kw = dict(d_model=256, d_ff=256, n_experts=4, capacity=256)
-    _same_topology(moe.block_diag_topology(moe.MoEConfig(**kw)),
+    _same_topology(moe.block_diag_topology(moe.MoEConfig(**kw), device="cpu"),
                    jmoe.block_diag_topology(jmoe.MoEConfig(**kw)))
 
 
@@ -43,7 +43,7 @@ def test_multihead_attention_matches_jax(rng):
     h, t, dh = 2, 512, 128
     q, k, v = (rng.standard_normal((h, t, dh)).astype(np.float32) for _ in range(3))
     jt = jattn.causal_block_topology(t, window_blocks=2, dtype=jnp.float32)
-    tt = attention.causal_block_topology(t, window_blocks=2, dtype=torch.float32)
+    tt = attention.causal_block_topology(t, window_blocks=2, dtype=torch.float32, device="cpu")
     expected = np.asarray(jattn.multihead_block_sparse_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jt, causal=True))
     out = attention.multihead_block_sparse_attention(
@@ -72,7 +72,7 @@ def moe_pair():
     jcfg = jmoe.MoEConfig(dtype=jnp.float32, **kw)
     tcfg = moe.MoEConfig(dtype=torch.float32, **kw)
     jparams = jmoe.init_moe_params(jax.random.PRNGKey(3), jcfg)
-    tparams = load_numpy_(moe.MoE(tcfg), jax.tree.map(np.asarray, jparams))
+    tparams = load_numpy_(moe.MoE(tcfg, device="cpu"), jax.tree.map(np.asarray, jparams))
     return jcfg, jparams, tcfg, tparams
 
 
@@ -99,4 +99,4 @@ def test_load_numpy_rejects_wrong_keys(moe_pair):
     tree = dict(jax.tree.map(np.asarray, jparams))
     tree.pop("router")
     with pytest.raises(ValueError, match="missing"):
-        load_numpy_(moe.MoE(tcfg), tree)
+        load_numpy_(moe.MoE(tcfg, device="cpu"), tree)

@@ -37,7 +37,7 @@ def _moe_pair(d_ff=256, n_experts=4, capacity=128, seed=3, empty_expert=None):
     jparams = jmoe.init_moe_params(jax.random.PRNGKey(seed), jcfg)
     if empty_expert is not None:
         jparams = dict(jparams, router=jparams["router"].at[0, empty_expert].set(-100.0))
-    tparams = load_numpy_(moe.MoE(tcfg), jax.tree.map(np.asarray, jparams))
+    tparams = load_numpy_(moe.MoE(tcfg, device="cpu"), jax.tree.map(np.asarray, jparams))
     return jcfg, jparams, tcfg, tparams
 
 
@@ -53,7 +53,8 @@ def test_moe_forward_bsr_matches_jax(rng, impl, tokens):
     jcfg, jparams, tcfg, tparams = _moe_pair()
     x = rng.standard_normal((tokens, D)).astype(np.float32)
     jy, jaux = jmoe.moe_forward(jparams, jnp.asarray(x), jcfg, jmoe.block_diag_topology(jcfg), impl=impl)
-    ty, taux = moe.moe_forward(tparams, torch.from_numpy(x), tcfg, moe.block_diag_topology(tcfg), impl=impl)
+    ty, taux = moe.moe_forward(tparams, torch.from_numpy(x), tcfg, moe.block_diag_topology(tcfg, device="cpu"),
+                                impl=impl)
     np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), atol=1e-4, rtol=0)
     np.testing.assert_allclose(float(taux.detach()), float(jaux), rtol=1e-6)
     if tokens == 640:  # dropped tokens give zero rows in both
@@ -142,7 +143,7 @@ def _grads(path, impl):
     jcfg, jparams, tcfg, tparams = _moe_pair(d_ff=128, n_experts=2)
     x = np.random.default_rng(7).standard_normal((150, D)).astype(np.float32)
     if path == "capacity":
-        jtopo, ttopo = jmoe.block_diag_topology(jcfg), moe.block_diag_topology(tcfg)
+        jtopo, ttopo = jmoe.block_diag_topology(jcfg), moe.block_diag_topology(tcfg, device="cpu")
         jfwd = lambda p, x_: jmoe.moe_forward(p, x_, jcfg, jtopo, impl=impl)  # noqa: E731
         tfwd = lambda p, x_: moe.moe_forward(p, x_, tcfg, ttopo, impl=impl)  # noqa: E731
     else:
@@ -198,7 +199,7 @@ def test_lm_topologies_carry_the_moe_topology():
     the fused FFN plans it without reading its metadata again."""
     kw = dict(d_model=256, n_heads=2, seq_len=512, n_experts=4, d_ff=256, n_layers=1, vocab=256)
     _, j = jtr.lm_topologies(jtr.TransformerConfig(dtype=jnp.float32, **kw))
-    _, t = tr.lm_topologies(tr.TransformerConfig(dtype=torch.float32, **kw))
+    _, t = tr.lm_topologies(tr.TransformerConfig(dtype=torch.float32, **kw), device="cpu")
     for name in ("offsets", "indices", "row_indices"):
         np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)))
     assert t.shape == j.shape and t.nnz_blocks == j.nnz_blocks

@@ -39,7 +39,7 @@ JAX_TOL = dict(atol=1e-4, rtol=1e-5)
 def _sparse(seed, rows, cols, density, unordered):
     nnz = max(int(rows * cols * density), BS * BS)
     jm = jtesting.random_bsr(np.random.default_rng(seed), rows, cols, nnz, BS, unordered=unordered)
-    tm = testing.random_bsr(np.random.default_rng(seed), rows, cols, nnz, BS, unordered=unordered)
+    tm = testing.random_bsr(np.random.default_rng(seed), rows, cols, nnz, BS, unordered=unordered, device="cpu")
     return jm, tm
 
 
@@ -177,7 +177,7 @@ def test_bsr_softmax_matches_jax(rng, causal):
     from sputnik_tpu_torch.models.attention import causal_block_topology
 
     jt = jcausal(512, window_blocks=2, dtype=jnp.float32)
-    tt = causal_block_topology(512, window_blocks=2, dtype=torch.float32)
+    tt = causal_block_topology(512, window_blocks=2, dtype=torch.float32, device="cpu")
     x = (rng.standard_normal(tuple(tt.data.shape)) * 3).astype(np.float32)
     expected = np.asarray(jsoftmax(jt.with_data(jnp.asarray(x)), scale=0.5, causal=causal).data)
     out = ops.bsr_softmax(tt.with_data(torch.from_numpy(x)), scale=0.5, causal=causal)
@@ -190,6 +190,6 @@ def test_bsr_softmax_matches_jax(rng, causal):
 def test_bsr_softmax_empty_rows_stay_finite():
     # Block-row 0 holds only a block above the diagonal (fully masked when
     # causal); block-row 1 holds nothing.
-    m = testing.bsr_from_blocks(256, 256, [0], [1], np.ones((1, BS, BS)))
+    m = testing.bsr_from_blocks(256, 256, [0], [1], np.ones((1, BS, BS)), device="cpu")
     out = ops.bsr_softmax(m, causal=True)
     assert torch.isfinite(out.data).all() and float(out.data.abs().max()) == 0.0

@@ -53,7 +53,7 @@ def test_lm_loss_and_grads_match_jax(lm_setup, fused):
     jcfg = dataclasses.replace(jcfg, fused_attention=fused)
     tcfg = tr.TransformerConfig(dtype=torch.float32, fused_attention=fused, **CFG)
     jloss, jgrads = jax.value_and_grad(jtr.lm_loss)(jparams, jnp.asarray(tokens), jcfg)
-    lm = params_from_numpy(np_params, tcfg)
+    lm = params_from_numpy(np_params, tcfg, device="cpu")
     loss = tr.lm_loss(lm, torch.from_numpy(tokens), tcfg)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     loss.backward()
@@ -65,7 +65,7 @@ def test_moe_loss_grads_match_jax(tokens):
     kw = dict(d_model=256, d_ff=128, n_experts=4, capacity=128)
     jcfg, tcfg = jmoe.MoEConfig(dtype=jnp.float32, **kw), moe.MoEConfig(dtype=torch.float32, **kw)
     jparams = jmoe.init_moe_params(jax.random.PRNGKey(1), jcfg)
-    tparams = load_numpy_(moe.MoE(tcfg), jax.tree.map(np.asarray, jparams))
+    tparams = load_numpy_(moe.MoE(tcfg, device="cpu"), jax.tree.map(np.asarray, jparams))
     rng = np.random.default_rng(13)
     x, target = (rng.standard_normal((tokens, 256)).astype(np.float32) for _ in range(2))
     jloss, (jgp, jgx) = jax.value_and_grad(jmoe.moe_loss, argnums=(0, 1))(
@@ -84,8 +84,8 @@ def test_adam_steps_lower_the_loss(lm_setup, fused):
     update rule of optax.adam), lr 3e-3, five steps."""
     _, _, np_params, tokens = lm_setup
     tcfg = tr.TransformerConfig(dtype=torch.float32, fused_attention=fused, **CFG)
-    lm = params_from_numpy(np_params, tcfg)
-    topos = tr.lm_topologies(tcfg)
+    lm = params_from_numpy(np_params, tcfg, device="cpu")
+    topos = tr.lm_topologies(tcfg, device="cpu")
     opt = torch.optim.Adam(lm.parameters(), lr=3e-3)
     toks = torch.from_numpy(tokens)
     losses = []
@@ -104,7 +104,7 @@ def test_serving_builds_no_graph(lm_setup):
     generation run under no_grad."""
     _, _, np_params, tokens = lm_setup
     tcfg = tr.TransformerConfig(dtype=torch.float32, fused_attention=True, **CFG)
-    lm = params_from_numpy(np_params, tcfg)
+    lm = params_from_numpy(np_params, tcfg, device="cpu")
     assert all(p.requires_grad for p in lm.parameters())
     prompt = torch.from_numpy(tokens[:256])
     caches, logits = tr.lm_prefill(lm, prompt, tcfg, CFG["seq_len"])
