@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the five CUDA libraries from csrc/ (one nvcc each, all
+   versions; build the eight CUDA libraries from csrc/ (one nvcc each, all
    started together) and print the seconds.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
@@ -82,8 +82,25 @@ Phases (any failure raises and the script exits non-zero):
    and each SELL kernel's device time beside its plain version, one
    PyTorch library call computing the same function (a yardstick the port
    never calls) and its bound.
+10. The sparse-output slice (SSD / SDS / DSS / SSS) at the JAX grid's
+   headline width d = 4096: (a) the four kernels (bsr_flat,
+   bsr_sparse_out, bsr_dss_masked, bsr_dss_worklist) against their plain
+   versions in all four modes, bf16 and fp32, block densities 0.01 and 0.1,
+   unordered indices with empty block-rows and -columns, an empty DSS
+   intersection and a slab schedule: fp32 within 1e-4 * max|plain|, bf16
+   within one bf16 ulp, two runs bitwise equal; (b) the first-fit routes
+   (host-built metadata at 10% takes cuda_flat, at 50% the dense detours
+   on bsr_dsd_stream, metadata built on the card at 1% the
+   output-stationary, work-list (with nnz hints) and masked (without)
+   kernels) with their exact launches, and every forward again with warm
+   plans under set_sync_debug_mode("error"); (c) fp32 gradients of
+   ops.ssd / sds / dss / sss, NN and TT, density 0.1, against the plain
+   path within 1e-4 * max|g|, two bsr_flat launches per backward; (d) the
+   bench/dss.py rows; (e) each kernel's device time at d = 4096 and
+   16384, density 0.1, NN, bf16, beside its plain version, its bound and
+   torch.sparse.mm of the CSR operands where it computes the same product.
 
-The line before the last is {"kernels": [...]} (eleven kernels, each with
+The line before the last is {"kernels": [...]} (fifteen kernels, each with
 its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -102,10 +119,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.bench import dlmc as dlmc_bench
+from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.bench import moe as moe_bench
-from sputnik_tpu_torch.formats import SellMatrix, csr_from_dense
-from sputnik_tpu_torch.kernels import _build, bsr_dsd, bsr_ffn, bsr_sdd, sell
+from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_dense
+from sputnik_tpu_torch.kernels import _build, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_sdd, bsr_ssd, sell
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
@@ -374,7 +393,8 @@ def ffn_cases(rng, errors):
 
 # ------------------------------------------------------------- phases 6, 7 --
 def reset_launches() -> None:
-    bsr_dsd.LAUNCHES = bsr_sdd.LAUNCHES = 0
+    bsr_dsd.LAUNCHES = bsr_sdd.LAUNCHES = bsr_flat.LAUNCHES = bsr_ssd.LAUNCHES = 0
+    bsr_dss.LAUNCHES.update(dict.fromkeys(bsr_dss.LAUNCHES, 0))
     fm.LAUNCHES.update(dict.fromkeys(FLASH, 0))
     bsr_ffn.LAUNCHES.update(dict.fromkeys(FFN, 0))
     sell.LAUNCHES.update(dict.fromkeys(SELL, 0))
@@ -1020,6 +1040,377 @@ def _kernel_timing(kname, label, kern, plain, lib, nbytes, flops, name_limit):
     return ms, plain_ms, lib_ms, bound, by
 
 
+# ---------------------------------------------------------------- phase 10 --
+# The sparse-output slice: SSD / SDS / DSS / SSS at the JAX grid's width
+# (bsr_grid_results.json: d up to 16384, headline d = 4096).
+SO_D, SO_D_LARGE = 4096, 16384
+SPARSE_OUT = ("bsr_flat", "bsr_sparse_out", "bsr_dss_masked", "bsr_dss_worklist")
+
+
+def so_counts() -> dict:
+    """Launches of the sparse-output kernels and of bsr_dsd_stream (the
+    dense detours' kernel)."""
+    return {"bsr_flat": bsr_flat.LAUNCHES, "bsr_sparse_out": bsr_ssd.LAUNCHES, **bsr_dss.LAUNCHES,
+            "bsr_dsd_stream": bsr_dsd.LAUNCHES}
+
+
+def so_launches(**nonzero) -> dict:
+    return {**dict.fromkeys(SPARSE_OUT + ("bsr_dsd_stream",), 0), **nonzero}
+
+
+def card_bsr(gen, d, density, dtype, *, hints: bool) -> BlockSparseMatrix:
+    """A random BSR whose metadata torch ops build on the card from a random
+    block mask (the size of the pattern is read back once, as construction;
+    the hints too when ``hints``)."""
+    nb = d // 128
+    mask = torch.rand((nb, nb), generator=gen, device=DEV) < density
+    counts = mask.sum(1, dtype=torch.int32)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int32, device=DEV), torch.cumsum(counts, 0, dtype=torch.int32)])
+    indices = mask.nonzero()[:, 1].to(torch.int32)
+    data = torch.randn((indices.numel(), 128, 128), generator=gen, device=DEV).to(dtype)
+    kw = {}
+    if hints:
+        kw = dict(max_row_nnz=int(counts.max()), max_col_nnz=int(mask.sum(0).max()))
+    return BlockSparseMatrix.create(data, offsets, indices, (d, d), **kw)
+
+
+def _ulp_or_rel(name, got, want, dtype):
+    """fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp; returns
+    max |kernel - plain|."""
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    if dtype == f32:
+        check(err <= 1e-4 * scale, f"{name}: max |kernel - plain| = {err} > 1e-4 * {scale}")
+    else:
+        ulps = testing.bf16_ulp_excess(got, want)
+        check(ulps <= 1, f"{name}: bf16 {ulps:.2f} ulp from the plain version")
+    return err
+
+
+def so_kernel_cases(rng, errors) -> None:
+    """(a): the four kernels against their plain versions at d = 4096 in all
+    four modes, bf16 and fp32, block densities 0.01 and 0.1, unordered
+    indices (0.01 leaves empty block-rows and block-columns), plus an
+    empty DSS intersection and a slab schedule; every kernel run twice,
+    bitwise equal. The work-list kernel runs on card-built metadata with
+    hints: its list keeps the static budget, dead slots included."""
+    d = SO_D
+    nb = d // 128
+
+    def case(name, kname, kernel_fn, plain_fn, dtype):
+        got, again, want = kernel_fn(), kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name}: two runs differ")
+        err = _ulp_or_rel(name, got, want, dtype)
+        if dtype == f32:
+            errors[kname] = max(errors.get(kname, 0.0), err)
+        return err
+
+    for density in (0.01, 0.1):
+        for dtype in (f32, torch.bfloat16):
+            for ta, tb in MODES:
+                a = rand_bsr(rng, d, d, density, dtype, unordered=True)
+                b = rand_bsr(rng, d, d, density, dtype, unordered=True)
+                t = rand_bsr(rng, d, d, density, dtype, unordered=True)
+                x = randn(rng, (d, d), dtype)
+                kw = dict(transpose_a=ta, transpose_b=tb)
+                plans = {"ssd": ops.plan_ssd(a, t, transpose_a=ta), "sds": ops.plan_sds(b, t, transpose_b=tb),
+                         "dss": ops.plan_dss(a, b, transpose_a=ta, transpose_b=tb),
+                         "sss": ops.plan_sss(a, b, t, transpose_a=ta, transpose_b=tb)}
+                pos = b.position_map()
+                ac, bc = dss_bench.card_built(a, True), dss_bench.card_built(b, True)
+                wl = bsr_dss.build_dss_worklist(ac, bc, **kw)
+                steps_a = bsr_ssd._max_steps(a, ta, None)
+                steps_b = bsr_ssd._max_steps(b, not tb, None)
+                cases = {
+                    "bsr_flat ssd": ("bsr_flat", lambda: bsr_flat.ssd_flat(a, x, t, schedule=plans["ssd"], **kw).data,
+                                     lambda: bsr_flat.flat_reference(plans["ssd"], a.data, x, t.nnz_blocks, **kw)),
+                    "bsr_flat sds": ("bsr_flat", lambda: bsr_flat.sds_flat(x, b, t, schedule=plans["sds"], **kw).data,
+                                     lambda: bsr_flat.flat_reference(plans["sds"], b.data, x, t.nnz_blocks, **kw)),
+                    "bsr_flat dss": ("bsr_flat", lambda: bsr_flat.dss_flat(a, b, schedule=plans["dss"], **kw),
+                                     lambda: bsr_flat.tiles_to_dense(bsr_flat.flat_reference(
+                                         plans["dss"], a.data, b.data, nb * nb, **kw), nb, nb)),
+                    "bsr_flat sss": ("bsr_flat", lambda: bsr_flat.sss_flat(a, b, t, schedule=plans["sss"], **kw).data,
+                                     lambda: bsr_flat.flat_reference(plans["sss"], a.data, b.data, t.nnz_blocks, **kw)),
+                    "bsr_sparse_out ssd": ("bsr_sparse_out", lambda: bsr_ssd.ssd(a, x, t, **kw).data,
+                                           lambda: bsr_ssd.sparse_out_reference(
+                                               bsr_flat.KIND_SSD, a, x, t, stream_transposed=ta, max_steps=steps_a, **kw)),
+                    "bsr_sparse_out sds": ("bsr_sparse_out", lambda: bsr_ssd.sds(x, b, t, **kw).data,
+                                           lambda: bsr_ssd.sparse_out_reference(
+                                               bsr_flat.KIND_SDS, b, x, t, stream_transposed=not tb, max_steps=steps_b,
+                                               **kw)),
+                    "bsr_dss_masked": ("bsr_dss_masked", lambda: bsr_dss.dss(a, b, pos_map=pos, **kw),
+                                       lambda: bsr_flat.tiles_to_dense(bsr_dss.masked_reference(
+                                           a, b, pos, max_steps=steps_a, m_blocks=nb, n_blocks=nb, **kw), nb, nb)),
+                    "bsr_dss_worklist": ("bsr_dss_worklist", lambda: bsr_dss.dss_worklist(ac, bc, worklist=wl, **kw),
+                                         lambda: bsr_flat.tiles_to_dense(bsr_dss.worklist_reference(
+                                             ac, bc, wl, n_tiles=nb * nb, **kw), nb, nb)),
+                }
+                errs = []
+                for name, (kname, kernel_fn, plain_fn) in cases.items():
+                    plain = (lambda f=plain_fn: f().to(dtype)) if dtype != f32 else plain_fn
+                    err = case(f"{name} {density} ta={ta:d} tb={tb:d}", kname, kernel_fn, plain, dtype)
+                    errs.append(f"{name[4:]} {err:.1e}")
+                print(f"  d={d} density {density} {str(dtype).split('.')[-1]:<8} ta={ta:d} tb={tb:d} "
+                      f"items ssd {plans['ssd'].total} dss {plans['dss'].total} (list {wl.out_sorted.numel()}); "
+                      f"min row/col nnz {a.min_row_nnz}/{a.min_col_nnz}: max|kernel-plain| {', '.join(errs)}",
+                      flush=True)
+    # An empty intersection: A touches only k-block 0, B only k-blocks >= 1.
+    for dtype in (f32, torch.bfloat16):
+        ones = np.ones((nb, 128, 128), np.float32)
+        a = testing.bsr_from_blocks(d, d, np.arange(nb), np.zeros(nb, np.int64), ones, dtype=dtype, device=DEV)
+        b = testing.bsr_from_blocks(d, d, np.arange(1, nb), np.arange(1, nb), ones[1:], dtype=dtype, device=DEV)
+        plan = ops.plan_dss(a, b)
+        check(plan.n_steps == 0, "the disjoint DSS has work")
+        ac, bc = dss_bench.card_built(a, True), dss_bench.card_built(b, True)
+        wl = bsr_dss.build_dss_worklist(ac, bc)
+        zero = torch.zeros((d, d), dtype=dtype, device=DEV)
+        for name, fn in (("bsr_flat", lambda: bsr_flat.dss_flat(a, b, schedule=plan)),
+                         ("bsr_dss_masked", lambda: bsr_dss.dss(a, b)),
+                         ("bsr_dss_worklist", lambda: bsr_dss.dss_worklist(ac, bc, worklist=wl))):
+            torch.cuda.synchronize()
+            check(torch.equal(fn(), zero), f"{name}: the empty intersection is not zero")
+        print(f"  empty DSS intersection {str(dtype).split('.')[-1]}: flat (0 steps), masked and work list "
+              f"({wl.out_sorted.numel()} dead slots) all zero", flush=True)
+    # A slab schedule (natural-order stream), bf16 and fp32.
+    for dtype in (f32, torch.bfloat16):
+        a = rand_bsr(rng, d, d, 0.1, dtype, unordered=True)
+        t = rand_bsr(rng, d, d, 0.1, dtype, unordered=True)
+        x = randn(rng, (d, d), dtype)
+        plan = bsr_flat.plan_sparse_out(a, t, kind="ssd", stream_transposed=False, slab=True)
+        check(plan.slab and int(plan.flags.sum()) < plan.flags.size, "the slab schedule has no padding slot")
+        err = case(f"bsr_flat slab {dtype}", "bsr_flat", lambda: bsr_flat.ssd_flat(a, x, t, schedule=plan).data,
+                   lambda: bsr_flat.flat_reference(plan, a.data, x, t.nnz_blocks, transpose_a=False,
+                                                   transpose_b=False).to(dtype), dtype)
+        print(f"  slab schedule {str(dtype).split('.')[-1]}: {plan.n_steps} steps of {plan.group}, "
+              f"{plan.total} real items: max|kernel-plain| {err:.1e}", flush=True)
+
+
+def _so_call(op, args, kw):
+    fn = {"ssd": ops.matmul_ssd, "sds": ops.matmul_sds, "dss": ops.matmul_dss, "sss": ops.matmul_sss}[op]
+    return fn(*args, **kw)
+
+
+def so_routes(rng) -> None:
+    """(b): first-fit routes, by registry.dispatch_name and the launches of
+    one call each; then every forward again, with warm plans, under
+    torch.cuda.set_sync_debug_mode("error"). Host-built metadata at 10%
+    takes cuda_flat for all four ops; at 50% SSD / SDS / DSS take the dense
+    detours (bsr_dsd_stream); metadata built on the card at 1% takes
+    cuda_output_stationary for SSD / SDS, and DSS takes cuda_worklist with
+    the nnz hints and cuda_masked_stream without them."""
+    d, bf16 = SO_D, torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    x = randn(rng, (d, d), bf16)
+    host10 = [rand_bsr(rng, d, d, 0.1, bf16, unordered=True) for _ in range(3)]
+    host50 = [rand_bsr(rng, d, d, 0.5, bf16, unordered=True) for _ in range(3)]
+    card = [card_bsr(gen, d, 0.01, bf16, hints=True) for _ in range(3)]
+    no_hints = [dss_bench.card_built(m, False) for m in card]
+    for m in card + no_hints:
+        check(not m.host_known, "card-built metadata has a host copy")
+    cases = []
+    for label, (a, b, t) in (("host 10%", host10), ("host 50%", host50)):
+        dense = label == "host 50%"
+        cases += [
+            (label, "ssd", (a, x, t), "dense_extract" if dense else "cuda_flat",
+             so_launches(bsr_dsd_stream=1) if dense else so_launches(bsr_flat=1)),
+            (label, "sds", (x, b, t), "dense_extract" if dense else "cuda_flat",
+             so_launches(bsr_dsd_stream=1) if dense else so_launches(bsr_flat=1)),
+            (label, "dss", (a, b), "densify" if dense else "cuda_flat",
+             so_launches(bsr_dsd_stream=1) if dense else so_launches(bsr_flat=1)),
+        ]
+    a, b, t = host10
+    cases.append(("host 10%", "sss", (a, b, t), "cuda_flat", so_launches(bsr_flat=1)))
+    a, b, t = card
+    cases += [
+        ("card 1%", "ssd", (a, x, t), "cuda_output_stationary", so_launches(bsr_sparse_out=1)),
+        ("card 1%", "sds", (x, b, t), "cuda_output_stationary", so_launches(bsr_sparse_out=1)),
+        ("card 1% hints", "dss", (a, b), "cuda_worklist", so_launches(bsr_dss_worklist=1)),
+        ("card 1% no hints", "dss", tuple(no_hints[:2]), "cuda_masked_stream", so_launches(bsr_dss_masked=1)),
+    ]
+    for label, op, args, route, want in cases:
+        name = registry.dispatch_name(op, *args)
+        check(name == route, f"{label} {op}: first fit is {name}, expected {route}")
+        torch.cuda.synchronize()
+        before = so_counts()
+        out = _so_call(op, args, {})
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in so_counts().items()}
+        check(delta == want, f"{label} {op}: launches {delta}, expected {want}")
+        out = out if op == "dss" else out.data
+        check(bool(torch.isfinite(out.float()).all()), f"{label} {op}: non-finite output")
+        with registry.forced_variant("torch_reference"):
+            plain = _so_call(op, args, {})
+        plain = plain if op == "dss" else plain.data
+        ulps = testing.bf16_ulp_excess(out, plain)
+        check(ulps <= 1, f"{label} {op}: {ulps:.2f} bf16 ulp from torch_reference")
+        print(f"  {label:<17} {op}: {name:<23} launches { {k: v for k, v in delta.items() if v} }; "
+              f"{ulps:.2f} ulp from torch_reference", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _, op, args, _, _ in cases:
+            _so_call(op, args, {})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  all {len(cases)} forwards ran again with warm plans and no synchronizing call", flush=True)
+
+
+# Launches of one backward at 10% with host-built metadata (ops/autodiff.py):
+# each of the four ops' two gradients is one flat-route product.
+SO_BACKWARD = so_launches(bsr_flat=2)
+
+
+def so_grads(rng) -> None:
+    """(c): fp32 (TF32 off) gradients of sum(out * w) through ops.ssd / sds
+    / dss / sss at d = 4096, density 0.1, NN and TT, against the same
+    forward and backward on the plain path (registry.forced_variant around
+    both): within 1e-4 * max|g|, with the exact launches of the backward."""
+    d = SO_D
+    for op in ("ssd", "sds", "dss", "sss"):
+        for ta, tb in ((False, False), (True, True)):
+            a = rand_bsr(rng, d, d, 0.1, f32, unordered=True) if op != "sds" else randn(rng, (d, d), f32)
+            b = rand_bsr(rng, d, d, 0.1, f32, unordered=True) if op != "ssd" else randn(rng, (d, d), f32)
+            t = rand_bsr(rng, d, d, 0.1, f32, unordered=True)
+            w = randn(rng, (d, d) if op == "dss" else tuple(t.data.shape), f32)
+            grads = []
+            for plain in (False, True):
+                la = (a.data if op != "sds" else a).clone().requires_grad_()
+                lb = (b.data if op != "ssd" else b).clone().requires_grad_()
+                sa = a.with_data(la) if op != "sds" else la
+                sb = b.with_data(lb) if op != "ssd" else lb
+                args = (sa, sb) if op == "dss" else (sa, sb, t)
+                with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+                    out = getattr(ops, op)(*args, transpose_a=ta, transpose_b=tb)
+                    loss = ((out if op == "dss" else out.data) * w).sum()
+                    torch.cuda.synchronize()
+                    before = so_counts()
+                    loss.backward()
+                    torch.cuda.synchronize()
+                delta = {k: v - before[k] for k, v in so_counts().items()}
+                want = so_launches() if plain else SO_BACKWARD
+                check(delta == want, f"{op} ta={ta:d} tb={tb:d} plain={plain}: backward launches {delta}, "
+                                     f"expected {want}")
+                grads.append((la.grad, lb.grad))
+            worst = 0.0
+            for got, ref in zip(*grads):
+                check(bool(torch.isfinite(got).all()), f"{op}: non-finite gradient")
+                worst = max(worst, float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30))
+            print(f"  fp32 {op} ta={ta:d} tb={tb:d}: max |kernels - plain| = {worst:.3e} * max|g|; backward "
+                  f"launches { {k: v for k, v in SO_BACKWARD.items() if v} }", flush=True)
+            check(worst <= 1e-4, f"{op} ta={ta:d} tb={tb:d}: gradients differ by {worst:.3e} * max|g| > 1e-4")
+
+
+def _distinct_bytes(*id_sets_and_sizes) -> int:
+    """Bytes of the distinct tiles a product must read: (ids, bytes per id)
+    pairs."""
+    return sum(len(np.unique(ids)) * size for ids, size in id_sets_and_sizes)
+
+
+def so_kernel_times(rng, name_limit: str) -> dict:
+    """(e): each kernel at d = 4096 and d = 16384, density 0.1, NN, bf16:
+    CUDA-graph device time (10 warm-up + 100 timed) beside its plain
+    version (eager where it reads the card back), its bound (distinct bytes
+    at 3.35 TB/s or 2 * items * 128^3 FLOP at 989 TFLOP/s, the larger) and
+    one PyTorch library call computing the same function where one exists.
+    bsr_flat is timed on SSD, SDS, DSS and SSS, bsr_sparse_out on SSD.
+    Returns {kernel: (ms, plain ms, library ms, bound ms, bound by)} at
+    d = 4096, bsr_flat's for SSD."""
+    bf16, tile = torch.bfloat16, 128 * 128 * 2
+    results = {}
+    for d in (SO_D, SO_D_LARGE):
+        nb = d // 128
+        a, b, t = (rand_bsr(rng, d, d, 0.1, bf16) for _ in range(3))
+        x = randn(rng, (d, d), bf16)
+        plans = {"ssd": ops.plan_ssd(a, t), "sds": ops.plan_sds(b, t), "dss": ops.plan_dss(a, b),
+                 "sss": ops.plan_sss(a, b, t)}
+        pos = b.position_map()
+        wl = bsr_dss.build_dss_worklist(a, b)
+
+        def items(p):
+            live = p.flags > 0
+            return p.data_ids[live], p.dep_ids[live], p.other_ids[live], np.repeat(p.out_ids, p.group)[live]
+
+        def sparse_out_bytes(p, dense_ids):
+            data, dep, other, out = items(p)
+            return _distinct_bytes((data, tile), (dense_ids(dep, other), tile), (out, tile)) + 20 * len(data)
+
+        ssd_bytes = sparse_out_bytes(plans["ssd"], lambda k, n: k * nb + n)
+        dss_data, dss_dep, _, _ = items(plans["dss"])
+        dss_bytes = _distinct_bytes((dss_data, tile), (dss_dep, tile)) + d * d * 2
+        specs = {
+            ("bsr_flat", "ssd"): (lambda: bsr_flat.ssd_flat(a, x, t, schedule=plans["ssd"]),
+                                  lambda: bsr_flat.flat_reference(plans["ssd"], a.data, x, t.nnz_blocks,
+                                                                  transpose_a=False, transpose_b=False),
+                                  plans["ssd"].total, ssd_bytes, None),
+            ("bsr_flat", "sds"): (lambda: bsr_flat.sds_flat(x, b, t, schedule=plans["sds"]),
+                                  lambda: bsr_flat.flat_reference(plans["sds"], b.data, x, t.nnz_blocks,
+                                                                  transpose_a=False, transpose_b=False),
+                                  plans["sds"].total, sparse_out_bytes(plans["sds"], lambda k, m: m * nb + k), None),
+            ("bsr_flat", "dss"): (lambda: bsr_flat.dss_flat(a, b, schedule=plans["dss"]),
+                                  lambda: bsr_flat.flat_reference(plans["dss"], a.data, b.data, nb * nb,
+                                                                  transpose_a=False, transpose_b=False),
+                                  plans["dss"].total, dss_bytes, "csr"),
+            ("bsr_flat", "sss"): (lambda: bsr_flat.sss_flat(a, b, t, schedule=plans["sss"]),
+                                  lambda: bsr_flat.flat_reference(plans["sss"], a.data, b.data, t.nnz_blocks,
+                                                                  transpose_a=False, transpose_b=False),
+                                  plans["sss"].total,
+                                  _distinct_bytes(*((ids, tile) for ids in items(plans["sss"])[:2]),
+                                                  (np.arange(t.nnz_blocks), tile)), None),
+            ("bsr_sparse_out", "ssd"): (lambda: bsr_ssd.ssd(a, x, t),
+                                        lambda: bsr_ssd.sparse_out_reference(
+                                            bsr_flat.KIND_SSD, a, x, t, stream_transposed=False,
+                                            max_steps=a.max_row_nnz, transpose_a=False, transpose_b=False),
+                                        plans["ssd"].total, ssd_bytes, None),
+            ("bsr_dss_masked", "dss"): (lambda: bsr_dss.dss(a, b, pos_map=pos),
+                                        lambda: bsr_dss.masked_reference(a, b, pos, transpose_a=False,
+                                                                         transpose_b=False, max_steps=a.max_row_nnz,
+                                                                         m_blocks=nb, n_blocks=nb),
+                                        plans["dss"].total, dss_bytes + nb * nb * 4, "csr"),
+            ("bsr_dss_worklist", "dss"): (lambda: bsr_dss.dss_worklist(a, b, worklist=wl),
+                                          lambda: bsr_dss.worklist_reference(a, b, wl, transpose_a=False,
+                                                                             transpose_b=False, n_tiles=nb * nb),
+                                          plans["dss"].total, dss_bytes + 16 * wl.out_sorted.numel() + nb * nb,
+                                          "csr"),
+        }
+        # The one PyTorch call computing DSS: torch.sparse.mm of the operands
+        # as element CSR (cuSPARSE SpGEMM, a sparse result), timed once per d,
+        # eagerly: SpGEMM reads its result's size back, so no graph holds it.
+        a_csr, b_csr = a.to_dense().to_sparse_csr(), b.to_dense().to_sparse_csr()
+        library = {"csr": None}
+        try:
+            torch.sparse.mm(a_csr, b_csr)
+            torch.cuda.synchronize()
+            library["csr"] = time_ms_eager(lambda: torch.sparse.mm(a_csr, b_csr))
+            print(f"  DSS d={d} torch.sparse.mm(csr, csr): library call {library['csr'] * 1e3:.2f} us (eager)",
+                  flush=True)
+        except Exception as e:  # noqa: BLE001 - PyTorch has no call for these inputs
+            print(f"  DSS d={d} torch.sparse.mm(csr, csr): no library call takes these inputs "
+                  f"({type(e).__name__}: {str(e)[:120]})", flush=True)
+        del a_csr, b_csr
+        for (kname, op), (kern, plain, n_items, nbytes, lib) in specs.items():
+            ms, call = time_ms(kern)
+            plain_ms, how = _library_time(plain)
+            lib_ms = library.get(lib)
+            bound, by = bound_ms(nbytes, 2 * n_items * 128 ** 3, BF16_FLOPS)
+            lib_text = f"library {lib_ms * 1e3:.2f} us" if lib_ms is not None else \
+                "library: none (tried: torch.sparse.sampled_addmm takes a dense A, torch.sparse.mm(bsr, dense) " \
+                "gives the whole product; no call masks a product to a block topology)" \
+                if op in ("ssd", "sds", "sss") else "library: none (torch.sparse.mm(csr, csr) refused above)"
+            print(f"  {kname:<16} {op} d={d} 10% NN bf16, {n_items} items: kernel {ms * 1e3:.2f} us device "
+                  f"({2 * n_items * 128 ** 3 / ms / 1e9:.1f} TFLOP/s) / {call * 1e3:.2f} us call, plain "
+                  f"{plain_ms * 1e3:.2f} us ({how}), {lib_text}, bound {bound * 1e3:.2f} us ({by}; "
+                  f"{bound / ms:.3f} of it) on {name_limit}", flush=True)
+            if d == SO_D and (kname != "bsr_flat" or op == "ssd"):
+                results[kname] = (ms, plain_ms, lib_ms, bound, by)
+        del a, b, t, x, plans, pos, wl, library
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -1031,8 +1422,10 @@ def main() -> int:
     print(f"card: {name_limit}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     start = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:  # one nvcc per source, together
-        for built in [pool.submit(f) for f in (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib)]:
+    builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
+              bsr_ssd._kernel, bsr_dss._lib)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
+        for built in [pool.submit(f) for f in builds]:
             built.result()
     print(f"kernels built and loaded in {time.perf_counter() - start:.1f} s "
           f"(per library: {_build.build_seconds})", flush=True)
@@ -1229,11 +1622,38 @@ def main() -> int:
     print("    kernel times (CUDA-graph device time, 10 warm-up + 100 timed; library calls are yardsticks "
           "the port never calls)", flush=True)
     csr_times = csr_kernel_times(name_limit)
+    torch.cuda.empty_cache()
+
+    print(f"== phase 10: the sparse-output slice (SSD / SDS / DSS / SSS) at d = {SO_D}, the JAX grid's "
+          "headline width", flush=True)
+    print("(a) the four kernels against their plain versions: 4 modes x bf16 / fp32 x densities 0.01 / 0.1",
+          flush=True)
+    so_kernel_cases(np.random.default_rng(12), errors)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(13)
+    torch.cuda.synchronize()
+    reset_launches()
+    print("(b) first-fit routes and launches; warm forwards under set_sync_debug_mode(\"error\")", flush=True)
+    so_routes(rng)
+    print(f"(c) fp32 gradients at d={SO_D}, density 0.1, against the plain path", flush=True)
+    so_grads(rng)
+    torch.cuda.synchronize()
+    so_main = so_counts()
+    main_launches.update({k: so_main[k] for k in SPARSE_OUT})
+    torch.cuda.empty_cache()
+    print(f"(d) python -m sputnik_tpu_torch.bench.dss (d 2048, densities 0.25 / 0.1, bf16) on {name_limit}",
+          flush=True)
+    for line in dss_bench.run():
+        print(json.dumps({k: (round(v, 2) if isinstance(v, float) else v) for k, v in line.items()}), flush=True)
+    print(f"(e) kernel times at d = {SO_D} and {SO_D_LARGE}, density 0.1, NN, bf16 (CUDA-graph device time, "
+          "10 warm-up + 100 timed; library calls are yardsticks the port never calls)", flush=True)
+    so_times = so_kernel_times(rng, name_limit)
 
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
     # runs of phase 8 for the FFN kernels, the fine-tune and the attention
-    # chain of phase 9 for the SELL kernels.
+    # chain of phase 9 for the SELL kernels, the routes and gradients of
+    # phase 10 for the sparse-output kernels.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -1246,11 +1666,16 @@ def main() -> int:
         "sell_spmm_t": ("sputnik_tpu_torch/csrc/sell.cu", "sputnik_tpu/kernels/sell.py:364"),
         "sell_sddmm": ("sputnik_tpu_torch/csrc/sell.cu", "sputnik_tpu/kernels/sell.py:492,517"),
         "sell_softmax": ("sputnik_tpu_torch/csrc/sell.cu", "sputnik_tpu/kernels/sell.py:593,606"),
+        "bsr_flat": ("sputnik_tpu_torch/csrc/bsr_flat.cu", "sputnik_tpu/kernels/bsr_flat.py:490"),
+        "bsr_sparse_out": ("sputnik_tpu_torch/csrc/bsr_ssd.cu", "sputnik_tpu/kernels/bsr_ssd.py:130"),
+        "bsr_dss_masked": ("sputnik_tpu_torch/csrc/bsr_dss.cu", "sputnik_tpu/kernels/bsr_dss.py:200"),
+        "bsr_dss_worklist": ("sputnik_tpu_torch/csrc/bsr_dss.cu", "sputnik_tpu/kernels/bsr_dss.py:498"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
     measured = {k: (times[k][0][0], times[k][1][0], yard[k][2], yard[k][0], yard[k][1]) for k in times}
     measured.update(csr_times)
+    measured.update(so_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

@@ -12,7 +12,12 @@ unfused, and dropless on a topology built on the device every step), the
 MoE benchmark, and the sparse LM's serving path and training loss; the
 CSR engine (``CsrMatrix``, ``EllMatrix``, ``SellMatrix``, ``ops.csr``: SpMM,
 its transpose, SDDMM and sparse softmax with gradients) on four more
-(``csrc/sell.cu``), the DLMC pruning utilities and the DLMC benchmark.
+(``csrc/sell.cu``), the DLMC pruning utilities and the DLMC benchmark;
+the sparse-output and sparse x sparse products SSD / SDS / DSS / SSS with
+their gradients on four more (``csrc/bsr_flat.cu``, ``csrc/bsr_ssd.cu``,
+``csrc/bsr_dss.cu``: exact host-planned work lists, and output-stationary,
+position-map and device-built work-list kernels for metadata built on the
+card) and the DSS benchmark.
 Entry points build on the CUDA card unless given ``device="cpu"``. It
 imports torch and never jax.
 """
@@ -29,10 +34,12 @@ from sputnik_tpu_torch.formats import (
     csr_to_dense,
     sorted_row_swizzle,
 )
-from sputnik_tpu_torch.ops import matmul_dds, matmul_dsd, matmul_sdd
+from sputnik_tpu_torch.ops import (
+    matmul, matmul_dds, matmul_dsd, matmul_dss, matmul_sdd, matmul_sds, matmul_ssd, matmul_sss,
+)
 
 __all__ = [
-    "BlockSparseMatrix", "bsr_from_dense", "bsr_to_dense", "models", "ops",
-    "matmul_dsd", "matmul_dds", "matmul_sdd",
+    "BlockSparseMatrix", "bsr_from_dense", "bsr_to_dense", "models", "ops", "matmul",
+    "matmul_dsd", "matmul_dds", "matmul_sdd", "matmul_ssd", "matmul_sds", "matmul_dss", "matmul_sss",
     "CsrMatrix", "EllMatrix", "SellMatrix", "csr_from_dense", "csr_to_dense", "sorted_row_swizzle",
 ]

@@ -21,6 +21,14 @@ before its tensors go to a device, so that no later call has to read the
 device. Metadata already on a CUDA device (built there every step, as the
 dropless MoE's is) is never read back: its hints are the caller's or
 ``None``, as the JAX package leaves them for traced metadata.
+
+The same split decides routing. The JAX package plans exact work lists on
+the host when metadata is concrete (not traced); the port's counterpart is
+metadata known on the host: ``create`` keeps numpy copies of ``offsets``
+and ``indices`` (``host_offsets`` / ``host_indices``) when it receives
+numpy or CPU metadata, and every derived descriptor carries them. Planners
+read those copies and never the card; a matrix whose metadata was built on
+the card has none and takes the routes for traced metadata.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ __all__ = [
     "bsr_to_dense",
     "build_transpose_metadata",
     "row_indices_from_offsets",
+    "block_position_map",
+    "block_bitmask",
     "sorted_row_swizzle",
     "CsrMatrix",
     "csr_from_dense",
@@ -89,6 +99,41 @@ def build_transpose_metadata(
     return offsets_t, row_ids[order], order.to(torch.int32)
 
 
+def block_position_map(offsets: torch.Tensor, indices: torch.Tensor, n_rows_b: int, n_cols_b: int) -> torch.Tensor:
+    """Dense ``(n_rows_b, n_cols_b)`` int32 map: ``pos[r, c]`` is the index
+    into ``data`` of block (r, c), or -1 when absent. Built on the metadata's
+    device with one scatter-amax, so padding blocks at a duplicate (row,
+    col) keep a valid id, as JAX's ``.at[].max`` does."""
+    nnz = indices.shape[0]
+    pos = torch.full((n_rows_b * n_cols_b,), -1, dtype=torch.int32, device=indices.device)
+    if nnz:
+        rows = row_indices_from_offsets(offsets, nnz).long()
+        ids = torch.arange(nnz, dtype=torch.int32, device=indices.device)
+        pos.scatter_reduce_(0, rows * n_cols_b + indices.long(), ids, reduce="amax")
+    return pos.reshape(n_rows_b, n_cols_b)
+
+
+def block_bitmask(offsets: torch.Tensor, indices: torch.Tensor, n_rows_b: int, n_cols_b: int) -> torch.Tensor:
+    """Packed presence bitmask ``(n_rows_b, words)`` uint32: bit ``c % 32`` of
+    word ``c // 32`` is set iff block (r, c) exists (rows padded to whole
+    words), the JAX package's layout."""
+    words = -(-n_cols_b // 32)
+    present = block_position_map(offsets, indices, n_rows_b, n_cols_b) >= 0
+    present = torch.nn.functional.pad(present, (0, words * 32 - n_cols_b))
+    bits = present.reshape(n_rows_b, words, 32).long()
+    shifts = torch.arange(32, device=bits.device)
+    return (bits << shifts).sum(dim=2).to(torch.uint32)
+
+
+def _np_transpose_metadata(offsets: np.ndarray, indices: np.ndarray, n_cols_b: int):
+    """:func:`build_transpose_metadata` on host copies, in numpy: the same
+    stable argsort, so the same arrays."""
+    row_ids = np.repeat(np.arange(len(offsets) - 1, dtype=np.int32), np.diff(offsets))
+    order = np.argsort(indices, kind="stable").astype(np.int32)
+    offsets_t = np.concatenate([[0], np.cumsum(np.bincount(indices, minlength=n_cols_b))]).astype(np.int32)
+    return offsets_t, row_ids[order], order
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockSparseMatrix:
     """BSR matrix descriptor; see the module docstring for the contract."""
@@ -106,6 +151,10 @@ class BlockSparseMatrix:
     max_col_nnz: Optional[int] = None
     min_row_nnz: Optional[int] = None
     min_col_nnz: Optional[int] = None
+    # Numpy copies of offsets / indices when the metadata was built on the
+    # host (see the module docstring); None for metadata built on a card.
+    host_offsets: Optional[np.ndarray] = dataclasses.field(default=None, compare=False, repr=False)
+    host_indices: Optional[np.ndarray] = dataclasses.field(default=None, compare=False, repr=False)
 
     # -- geometry -------------------------------------------------------------
     @property
@@ -170,9 +219,10 @@ class BlockSparseMatrix:
         if shape[0] % bs or shape[1] % bs:
             raise ValueError(f"shape {shape} not divisible by block_size {bs}")
         min_row_nnz = min_col_nnz = None
+        off_np = idx_np = None
         if not any(isinstance(x, torch.Tensor) and x.is_cuda for x in (offsets, indices)):
-            off_np = offsets.numpy() if isinstance(offsets, torch.Tensor) else np.asarray(offsets)
-            idx_np = indices.numpy() if isinstance(indices, torch.Tensor) else np.asarray(indices)
+            off_np = np.array(offsets.numpy() if isinstance(offsets, torch.Tensor) else offsets, np.int32)
+            idx_np = np.array(indices.numpy() if isinstance(indices, torch.Tensor) else indices, np.int32)
             counts = off_np[1:] - off_np[:-1]
             col_counts = np.bincount(idx_np.astype(np.int64), minlength=shape[1] // bs)
             if max_row_nnz is None:
@@ -200,6 +250,8 @@ class BlockSparseMatrix:
             max_col_nnz=max_col_nnz,
             min_row_nnz=min_row_nnz,
             min_col_nnz=min_col_nnz,
+            host_offsets=off_np,
+            host_indices=idx_np,
         )
         return m.with_transpose_metadata() if with_transpose else m
 
@@ -214,6 +266,34 @@ class BlockSparseMatrix:
         return dataclasses.replace(
             self, offsets_t=offsets_t, indices_t=indices_t, block_offsets=block_offsets
         )
+
+    @property
+    def host_known(self) -> bool:
+        """Whether the metadata is known on the host (the JAX package's
+        "concrete"): planners may read :meth:`host_metadata`."""
+        return self.host_offsets is not None and self.host_indices is not None
+
+    def host_metadata(self, transposed: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(offsets, dep ids, data ids) in numpy, in block-row order or
+        (``transposed``) through the transpose metadata: (offsets_t,
+        indices_t, block_offsets). Raises for metadata built on a card."""
+        if not self.host_known:
+            raise ValueError(
+                "the metadata was built on a card and has no host copy; planning on the host needs "
+                "numpy or CPU metadata (the routes for traced metadata take the rest)"
+            )
+        if transposed:
+            return _np_transpose_metadata(self.host_offsets, self.host_indices, self.block_cols)
+        return self.host_offsets, self.host_indices, np.arange(self.nnz_blocks, dtype=np.int32)
+
+    def host_row_indices(self) -> np.ndarray:
+        """Block-row id of every block, in numpy, from the host copies."""
+        offs, _, _ = self.host_metadata()
+        return np.repeat(np.arange(self.block_rows, dtype=np.int32), np.diff(offs))
+
+    def position_map(self) -> torch.Tensor:
+        """Dense (block_rows, block_cols) int32 position-or-minus-one map."""
+        return block_position_map(self.offsets, self.indices, self.block_rows, self.block_cols)
 
     def iteration_arrays(self, transposed: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(row_ids, col_ids, data_ids) in kernel iteration order: block-row
@@ -236,8 +316,38 @@ class BlockSparseMatrix:
         }
         return dataclasses.replace(self, **moved)
 
+    def transpose(self) -> "BlockSparseMatrix":
+        """The transposed matrix, materialized (blocks moved AND transposed):
+        a standalone BSR of shape (cols, rows), unlike
+        :meth:`with_transpose_metadata`'s index indirection."""
+        m = self.with_transpose_metadata()
+        bo = m.block_offsets.long()
+        host_offsets = host_indices = None
+        if self.host_known:
+            host_offsets, host_indices, _ = self.host_metadata(transposed=True)
+        return BlockSparseMatrix(
+            data=m.data[..., bo, :, :].transpose(-1, -2),
+            offsets=m.offsets_t,
+            indices=m.indices_t,
+            row_indices=m.indices[bo],
+            offsets_t=None,
+            indices_t=None,
+            block_offsets=None,
+            shape=(self.shape[1], self.shape[0]),
+            block_size=self.block_size,
+            max_row_nnz=self.max_col_nnz,
+            max_col_nnz=self.max_row_nnz,
+            min_row_nnz=self.min_col_nnz,
+            min_col_nnz=self.min_row_nnz,
+            host_offsets=host_offsets,
+            host_indices=host_indices,
+        )
+
     def to_dense(self) -> torch.Tensor:
         return bsr_to_dense(self)
+
+    def astype(self, dtype: torch.dtype) -> "BlockSparseMatrix":
+        return dataclasses.replace(self, data=self.data.to(dtype))
 
     def with_data(self, data: torch.Tensor) -> "BlockSparseMatrix":
         """Same topology, new block values; the batch axis may change."""
@@ -246,10 +356,15 @@ class BlockSparseMatrix:
         return dataclasses.replace(self, data=data)
 
 
-def bsr_from_dense(x, block_size: int, *, prune_zero_blocks: bool = True) -> BlockSparseMatrix:
-    """Dense (numpy or tensor) -> BSR, on the host: the number of nonzero
-    blocks depends on the data."""
-    device = x.device if isinstance(x, torch.Tensor) else None
+def bsr_from_dense(x, block_size: int, *, prune_zero_blocks: bool = True, device=None) -> BlockSparseMatrix:
+    """Dense (numpy or tensor) -> BSR, planned on the host: the number of
+    nonzero blocks depends on the data. A numpy array goes to ``device``
+    (``None``: the card); a tensor keeps its device unless ``device`` is
+    given. The metadata is known on the host either way."""
+    if isinstance(x, torch.Tensor):
+        device = x.device if device is None else torch.device(device)
+    else:
+        device = resolve_device(device)
     xn = x.detach().cpu() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     rows, cols = xn.shape
     bs = block_size
@@ -264,8 +379,7 @@ def bsr_from_dense(x, block_size: int, *, prune_zero_blocks: bool = True) -> Blo
     r, c = np.nonzero(mask)
     data = blocks[torch.as_tensor(r), torch.as_tensor(c)].contiguous()
     offsets = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=br))]).astype(np.int32)
-    m = BlockSparseMatrix.create(data, offsets, c.astype(np.int32), (rows, cols))
-    return m if device is None else m.to(device)
+    return BlockSparseMatrix.create(data.to(device), offsets, c.astype(np.int32), (rows, cols))
 
 
 def bsr_to_dense(m: BlockSparseMatrix) -> torch.Tensor:

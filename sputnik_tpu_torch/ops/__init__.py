@@ -2,15 +2,20 @@
 softmax and fused flash attention, and the CSR engine (``ops.csr``: SpMM,
 SDDMM and sparse softmax over CSR / ELL / SELL, with gradients).
 
-``dsd``, ``dds`` and ``sdd`` are the differentiable entry points the models
-call (``ops/autodiff.py``); ``matmul_*`` are the raw dispatching front ends.
-Both take the same options, ``variant=`` included. ``flash_mha`` is
+``dsd``, ``dds``, ``sdd``, ``ssd``, ``sds``, ``dss`` and ``sss`` are the
+differentiable entry points (``ops/autodiff.py``); ``matmul_*`` are the raw
+dispatching front ends and ``matmul`` picks one by operand type. Both take
+the same options, ``variant=`` included. ``plan_*`` build the exact work
+lists (``FlatSchedule``) of the sparse-output ops on the host. ``flash_mha`` is
 registered with the variants ``cuda_flash`` and ``torch_reference``.
 """
 
 from sputnik_tpu_torch.ops import registry
-from sputnik_tpu_torch.ops.autodiff import dds, dsd, sdd
-from sputnik_tpu_torch.ops.matmul import matmul_dds, matmul_dsd, matmul_sdd
+from sputnik_tpu_torch.ops.autodiff import dds, dsd, dss, sdd, sds, ssd, sss
+from sputnik_tpu_torch.ops.matmul import (
+    FlatSchedule, matmul, matmul_dds, matmul_dsd, matmul_dss, matmul_sdd, matmul_sds, matmul_ssd, matmul_sss,
+    plan_dss, plan_sds, plan_ssd, plan_sss,
+)
 from sputnik_tpu_torch.ops.softmax import bsr_softmax
 
 # Imported after ``registry``: the kernel modules register themselves in it.
@@ -18,6 +23,7 @@ from sputnik_tpu_torch.kernels.flash_mha import flash_mha  # noqa: E402  isort: 
 from sputnik_tpu_torch.ops import csr  # noqa: E402  isort: skip
 
 __all__ = [
-    "matmul_dsd", "matmul_dds", "matmul_sdd", "dsd", "dds", "sdd", "registry", "bsr_softmax",
-    "flash_mha", "csr",
+    "matmul", "matmul_dsd", "matmul_dds", "matmul_sdd", "matmul_ssd", "matmul_sds", "matmul_dss", "matmul_sss",
+    "dsd", "dds", "sdd", "ssd", "sds", "dss", "sss", "FlatSchedule", "plan_ssd", "plan_sds", "plan_dss",
+    "plan_sss", "registry", "bsr_softmax", "flash_mha", "csr",
 ]

@@ -3,9 +3,12 @@ the registry's CUDA routing, the small LM through the kernels against
 the same LM on the CPU (serving logits, and training gradients on both
 attention routes), the MoE paths (the fused FFN kernels, metadata
 built on the card without a device read, and every MoE forward and the
-fused paths' gradients against the CPU), and the CSR engine's SELL
+fused paths' gradients against the CPU), the CSR engine's SELL
 kernels (against their plain versions, run to run, and with no host read
-in the ops' forwards and backwards).
+in the ops' forwards and backwards), and the sparse-output kernels
+(bsr_flat, bsr_sparse_out, bsr_dss_masked, bsr_dss_worklist: against their
+plain versions, run to run, their first-fit routes, and no host read with
+warm plans).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -22,7 +25,8 @@ import torch
 
 from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
-from sputnik_tpu_torch.kernels import bsr_dsd, bsr_ffn, bsr_sdd, reference, sell
+from sputnik_tpu_torch.bench import dss as dss_bench
+from sputnik_tpu_torch.kernels import bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_sdd, bsr_ssd, reference, sell
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
@@ -381,3 +385,129 @@ def test_sell_wrappers_raise_on_cuda(cuda):
     with pytest.raises(ValueError, match="CUDA tensors"):
         sell.spmm(s, torch.zeros(256, 64))
     assert registry.dispatch_name("sell_spmm", s, torch.zeros(256, 64, device=cuda)) == "cuda_sell"
+
+
+def _sparse_out_problem(rng, cuda, dtype, density=0.2, d=768):
+    mats = [testing.random_bsr(rng, d, d, int(d * d * density), BS, unordered=True, dtype=dtype, device=cuda)
+            for _ in range(3)]
+    return (*mats, _randn(rng, (d, d), cuda, dtype))
+
+
+def _sparse_out_cases(a, b, t, x, ta, tb):
+    """{kernel case: (kernel call, plain call)} of the four sparse-output
+    kernels on one problem; the plain calls return fp32 sums."""
+    nb = a.rows // BS
+    kw = dict(transpose_a=ta, transpose_b=tb)
+    plans = {"ssd": ops.plan_ssd(a, t, transpose_a=ta), "sds": ops.plan_sds(b, t, transpose_b=tb),
+             "dss": ops.plan_dss(a, b, **kw), "sss": ops.plan_sss(a, b, t, **kw)}
+    ac, bc = dss_bench.card_built(a), dss_bench.card_built(b)
+    wl = bsr_dss.build_dss_worklist(ac, bc, **kw)
+    pos = b.position_map()
+    steps = a.max_col_nnz if ta else a.max_row_nnz
+    dense = lambda tiles: bsr_flat.tiles_to_dense(tiles, nb, nb)  # noqa: E731
+    return {
+        "flat ssd": (lambda: bsr_flat.ssd_flat(a, x, t, schedule=plans["ssd"], **kw).data,
+                     lambda: bsr_flat.flat_reference(plans["ssd"], a.data, x, t.nnz_blocks, **kw)),
+        "flat sds": (lambda: bsr_flat.sds_flat(x, b, t, schedule=plans["sds"], **kw).data,
+                     lambda: bsr_flat.flat_reference(plans["sds"], b.data, x, t.nnz_blocks, **kw)),
+        "flat dss": (lambda: bsr_flat.dss_flat(a, b, schedule=plans["dss"], **kw),
+                     lambda: dense(bsr_flat.flat_reference(plans["dss"], a.data, b.data, nb * nb, **kw))),
+        "flat sss": (lambda: bsr_flat.sss_flat(a, b, t, schedule=plans["sss"], **kw).data,
+                     lambda: bsr_flat.flat_reference(plans["sss"], a.data, b.data, t.nnz_blocks, **kw)),
+        "sparse_out ssd": (lambda: bsr_ssd.ssd(a, x, t, **kw).data,
+                           lambda: bsr_ssd.sparse_out_reference(bsr_flat.KIND_SSD, a, x, t, stream_transposed=ta,
+                                                                max_steps=steps, **kw)),
+        "sparse_out sds": (lambda: bsr_ssd.sds(x, b, t, **kw).data,
+                           lambda: bsr_ssd.sparse_out_reference(
+                               bsr_flat.KIND_SDS, b, x, t, stream_transposed=not tb,
+                               max_steps=b.max_row_nnz if tb else b.max_col_nnz, **kw)),
+        "dss_masked": (lambda: bsr_dss.dss(a, b, pos_map=pos, **kw),
+                       lambda: dense(bsr_dss.masked_reference(a, b, pos, max_steps=steps, m_blocks=nb, n_blocks=nb,
+                                                              **kw))),
+        "dss_worklist": (lambda: bsr_dss.dss_worklist(ac, bc, worklist=wl, **kw),
+                         lambda: dense(bsr_dss.worklist_reference(ac, bc, wl, n_tiles=nb * nb, **kw))),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ta,tb", MODES)
+def test_sparse_out_kernels_match_plain(cuda, dtype, ta, tb):
+    """The four sparse-output kernels in every mode against their plain
+    versions on the same plan, work list or position map: fp32 within
+    1e-4 * max|plain|, bf16 within one bf16 ulp; two runs bitwise equal."""
+    rng = np.random.default_rng(20)
+    launches = bsr_flat.LAUNCHES, bsr_ssd.LAUNCHES, dict(bsr_dss.LAUNCHES)
+    for name, (kernel, plain) in _sparse_out_cases(*_sparse_out_problem(rng, cuda, dtype), ta, tb).items():
+        got, again, want = kernel(), kernel(), plain().to(dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), name
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
+        else:
+            assert testing.bf16_ulp_excess(got, want) <= 1, name
+    assert bsr_flat.LAUNCHES == launches[0] + 8 and bsr_ssd.LAUNCHES == launches[1] + 4
+    assert all(bsr_dss.LAUNCHES[k] == launches[2][k] + 2 for k in launches[2])
+
+
+def test_sparse_out_empty_work_is_zero(cuda):
+    """An empty DSS intersection through all three DSS kernels, and output
+    blocks with no work, come out as exact zeros."""
+    ones = np.ones((3, BS, BS), np.float32)
+    a = testing.bsr_from_blocks(384, 384, [0, 1, 2], [0, 0, 0], ones, device=cuda)
+    b = testing.bsr_from_blocks(384, 384, [2, 2, 2], [0, 1, 2], ones, device=cuda)
+    zero = torch.zeros(384, 384, device=cuda)
+    ac, bc = dss_bench.card_built(a), dss_bench.card_built(b)
+    assert torch.equal(bsr_flat.dss_flat(a, b), zero)
+    assert torch.equal(bsr_dss.dss(a, b), zero)
+    assert torch.equal(bsr_dss.dss_worklist(ac, bc), zero)
+    x = torch.ones(384, 384, device=cuda)
+    for fn in (bsr_flat.ssd_flat, bsr_ssd.ssd):
+        out = fn(b, x, a).data  # b's row 0 is empty: a's blocks in row 0 get no work
+        assert float(out[0].abs().max()) == 0.0 and float(out[2].abs().min()) == 3 * BS
+
+
+def test_sparse_out_routes_and_no_host_reads(cuda):
+    """Host-built metadata takes cuda_flat (10%) and the dense detours (50%);
+    metadata built on the card takes the output-stationary, work-list (nnz
+    hints) and masked (no hints) kernels; every forward runs again with
+    warm plans under set_sync_debug_mode("error")."""
+    rng = np.random.default_rng(21)
+    d, bf16 = 1024, torch.bfloat16
+    x = _randn(rng, (d, d), cuda, bf16)
+    host10 = [testing.random_bsr(rng, d, d, d * d // 10, BS, dtype=bf16, device=cuda) for _ in range(3)]
+    host50 = [testing.random_bsr(rng, d, d, d * d // 2, BS, dtype=bf16, device=cuda) for _ in range(3)]
+    sparse = [testing.random_bsr(rng, d, d, d * d // 64, BS, dtype=bf16, device=cuda) for _ in range(3)]
+    card = [dss_bench.card_built(m) for m in sparse]
+    calls = []
+    for (a, b, t), flat in ((host10, True), (host50, False)):
+        calls += [("ssd", (a, x, t), "cuda_flat" if flat else "dense_extract"),
+                  ("sds", (x, b, t), "cuda_flat" if flat else "dense_extract"),
+                  ("dss", (a, b), "cuda_flat" if flat else "densify")]
+    a, b, t = card
+    calls += [("sss", tuple(host10), "cuda_flat"), ("ssd", (a, x, t), "cuda_output_stationary"),
+              ("sds", (x, b, t), "cuda_output_stationary"), ("dss", (a, b), "cuda_worklist"),
+              ("dss", (dss_bench.card_built(a, False), b), "cuda_masked_stream")]
+    for op, args, route in calls:
+        assert registry.dispatch_name(op, *args) == route, (op, route)
+        getattr(ops, f"matmul_{op}")(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for op, args, _ in calls:
+            getattr(ops, f"matmul_{op}")(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_sparse_out_wrappers_raise_on_cuda(cuda):
+    """A CUDA problem the kernels do not take raises; it never falls back."""
+    rng = np.random.default_rng(22)
+    a, b, t, x = _sparse_out_problem(rng, cuda, torch.float32, d=256)
+    with pytest.raises(ValueError, match="one dtype"):
+        ops.matmul_ssd(a, x.to(torch.bfloat16), t, variant="cuda_flat")
+    with pytest.raises(ValueError, match="batch axis"):
+        bsr_dss.dss(a.with_data(a.data[None]), b)
+    small = testing.random_bsr(rng, 256, 256, 256 * 256 // 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="block size"):
+        bsr_ssd.ssd(small, x, small)
