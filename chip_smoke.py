@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the eight CUDA libraries from csrc/ (one nvcc each, all
+   versions; build the nine CUDA libraries from csrc/ (one nvcc each, all
    started together) and print the seconds.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
@@ -27,8 +27,8 @@ Phases (any failure raises and the script exits non-zero):
    bf16, random weights from seed 0) serves 4 requests of 1024-token
    prompts, 32 new tokens each, through lm_generate_batched. Checks the
    token ids, that a second run gives the same tokens, that every prefill
-   layer launched each kernel once (16 launches each), and that parameters
-   and caches live on the card.
+   layer launched SDD, the two softmax kernels and DSD once (16 launches
+   each), and that parameters and caches live on the card.
 4. The same model in fp32 (TF32 off): each request's prefill logits through
    the kernels against the plain versions (registry.forced_variant), max
    |diff| <= 1e-3;
@@ -43,8 +43,8 @@ Phases (any failure raises and the script exits non-zero):
    (SDD -> softmax -> DSD and their VJPs). Checks finite losses, the last
    below the first, parameters, gradients and Adam state on the card, and
    the exact launches per step: fused 16 of each flash kernel and no
-   sparse kernel; unfused 64 bsr_dsd_stream and 32 bsr_sdd and no flash
-   kernel. Prints the wall time per step (informational).
+   sparse kernel; unfused 64 bsr_dsd_stream, 32 bsr_sdd, 16 of each
+   softmax kernel and no flash kernel. Prints the wall time per step (informational).
 7. The same model in fp32 (TF32 off), both routes: one backward of the
    batch loss through the kernels against the plain versions
    (registry.forced_variant), every parameter's gradient within
@@ -100,8 +100,30 @@ Phases (any failure raises and the script exits non-zero):
    16384, density 0.1, NN, bf16, beside its plain version, its bound and
    torch.sparse.mm of the CSR operands where it computes the same product.
 
-The line before the last is {"kernels": [...]} (fifteen kernels, each with
-its launches on the main path, max error, time, plain time, bound and
+11. The rest of attention at the serving model's width (8 heads, T = 2048,
+   d_head 128, window 4): (a) the two BSR softmax kernels (stats, normalize)
+   and the score pass of ops.sdd_softmax against their plain versions, bf16
+   and fp32, causal and not, on metadata built on the card with no
+   max_row_nnz hint, with an empty block-row and a duplicated block; fp32
+   within 1e-4 * max|plain|, bf16 within one bf16 ulp, every kernel twice
+   bitwise equal; flash_block_attention (the flash kernels at H = 1) and
+   the gradients of both backward routes against the plain path; lm_loss
+   and backward() at TransformerConfig() (d_head 64) on both attention
+   routes against the plain path, with exact launches; (b) content-routed
+   attention: per head, topk_block_topology(q, k, 4) built on the card,
+   attention over it fused (flash_block_attention) and unfused and the
+   probabilities by ops.sdd_softmax against the plain path, with exact
+   launches, the topology build and the fused forward under
+   set_sync_debug_mode("error"); (c) top-k serving,
+   lm_generate_batched(mode="topk", k_pages=4), 4 requests x 1024-token
+   prompts x 32 new tokens, greedy and at temperature 0.8 from a seeded
+   generator; (d) the bench/serving.py rows (batch 1 / 8 / 32, band and
+   top-4); (e) the device times of the three new kernels and of
+   flash_block_attention's passes at H = 1, beside their plain versions,
+   bounds and library yardsticks.
+
+The line before the last is {"kernels": [...]} (eighteen kernels, each
+with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
 
@@ -123,8 +145,10 @@ from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.bench import dlmc as dlmc_bench
 from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.bench import moe as moe_bench
+from sputnik_tpu_torch.bench import serving as serving_bench
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_dense
 from sputnik_tpu_torch.kernels import _build, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_sdd, bsr_ssd, sell
+from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
@@ -143,7 +167,8 @@ N_REQUESTS, PROMPT, N_NEW = 4, 1024, 32
 TRAIN_BATCH, TRAIN_STEPS, LR = 4, 5, 3e-3
 FLASH = tuple(fm.LAUNCHES)  # flash_mha_fwd, flash_mha_dq, flash_mha_dkv
 FFN = tuple(bsr_ffn.LAUNCHES)  # bsr_ffn_group, bsr_ffn_dropless
-KERNELS = ("bsr_dsd_stream", "bsr_sdd") + FLASH + FFN
+SOFTMAX = tuple(bsm.LAUNCHES)  # bsr_softmax_stats, bsr_softmax_normalize, sdd_softmax
+KERNELS = ("bsr_dsd_stream", "bsr_sdd") + FLASH + FFN + SOFTMAX
 # The MoE slice: bench/moe.py's default config (the serving LM's MoE layer).
 MOE = moe.MoEConfig(d_model=1024, d_ff=2048, n_experts=8, capacity=512, dtype=torch.bfloat16)
 # lr 3e-3, as the LM's training phase: at this width lr 1e-2 (examples/
@@ -398,13 +423,14 @@ def reset_launches() -> None:
     fm.LAUNCHES.update(dict.fromkeys(FLASH, 0))
     bsr_ffn.LAUNCHES.update(dict.fromkeys(FFN, 0))
     sell.LAUNCHES.update(dict.fromkeys(SELL, 0))
+    bsm.LAUNCHES.update(dict.fromkeys(SOFTMAX, 0))
 
 
 def launch_counts() -> dict:
-    """The counts of the kernels of phases 1-8 (the CSR kernels have their
-    own, ``sell.LAUNCHES``)."""
+    """The counts of the kernels of phases 1-8 and 11 (the CSR kernels have
+    their own, ``sell.LAUNCHES``)."""
     return {"bsr_dsd_stream": bsr_dsd.LAUNCHES, "bsr_sdd": bsr_sdd.LAUNCHES, **fm.LAUNCHES,
-            **bsr_ffn.LAUNCHES}
+            **bsr_ffn.LAUNCHES, **bsm.LAUNCHES}
 
 
 def launches(**nonzero) -> dict:
@@ -415,12 +441,13 @@ def launches(**nonzero) -> dict:
 def expected_train_launches(fused: bool, n_seq: int) -> dict:
     """Launches of one loss backward over ``n_seq`` sequences. Fused: one of
     each flash kernel per layer and sequence. Unfused, by ops/autodiff.py:
-    the forward runs 1 SDD + 1 DSD, the backward 3 DSD/DDS launches (DSD's
-    dB, SDD's dA and dB) + 1 SDD (DSD's dA) per layer and sequence."""
+    the forward runs 1 SDD + the two softmax kernels + 1 DSD, the backward
+    3 DSD/DDS launches (DSD's dB, SDD's dA and dB) + 1 SDD (DSD's dA) per
+    layer and sequence (the softmax's VJP is plain torch, as JAX's)."""
     per = SERVE.n_layers * n_seq
     if fused:
         return launches(**dict.fromkeys(FLASH, per))
-    return launches(bsr_dsd_stream=4 * per, bsr_sdd=2 * per)
+    return launches(bsr_dsd_stream=4 * per, bsr_sdd=2 * per, bsr_softmax_stats=per, bsr_softmax_normalize=per)
 
 
 def batch_loss(lm, batch, cfg, topos):
@@ -1411,6 +1438,325 @@ def so_kernel_times(rng, name_limit: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phase 11 --
+# The rest of attention at the serving model's width: the BSR softmax
+# kernels, the fused SDD + softmax, flash_block_attention, content-routed
+# top-k attention and top-k / sampled serving.
+TOPK_PAGES = 4
+
+
+def card_band(dtype) -> BlockSparseMatrix:
+    """The serving band (T = 2048, window 4, 58 blocks) as metadata built on
+    the card holds it: no host copy and no max_row_nnz hint."""
+    topo = attention.causal_block_topology(SERVE.seq_len, window_blocks=SERVE.window_blocks, dtype=dtype, device=DEV)
+    return dss_bench.card_built(topo, False)
+
+
+def irregular_band(dtype) -> BlockSparseMatrix:
+    """The serving band with block-row 3 emptied and block (10, 9) stored
+    twice, metadata as built on the card with no hint."""
+    band = attention.causal_block_topology(SERVE.seq_len, window_blocks=SERVE.window_blocks, device="cpu")
+    rows, cols = band.row_indices.numpy(), band.indices.numpy()
+    rows, cols = rows[rows != 3], cols[rows != 3]
+    at = int(np.nonzero((rows == 10) & (cols == 9))[0][0])
+    rows, cols = np.insert(rows, at, 10), np.insert(cols, at, 9)
+    topo = testing.bsr_from_blocks(SERVE.seq_len, SERVE.seq_len, rows, cols, np.zeros((len(rows), 128, 128)),
+                                   dtype=dtype, device=DEV)
+    return dss_bench.card_built(topo, False)
+
+
+def _twice(fn):
+    """``fn()`` run twice, checked bitwise equal; returns the first result."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    for x, y in zip(first if isinstance(first, tuple) else (first,), again if isinstance(again, tuple) else (again,)):
+        check(torch.equal(x, y), "two runs of a kernel differ")
+    return first
+
+
+def softmax_kernel_cases(rng, errors) -> None:
+    """(a): the two softmax kernels (stats against their plain version on
+    live rows, normalize against its plain version on the kernel's stats)
+    and the score pass of ops.sdd_softmax, 8 heads, bf16 / fp32, causal and
+    not, metadata built on the card with no hint; an empty block-row (the
+    empty-row stats) and a duplicated block; every kernel twice, bitwise
+    equal. fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp."""
+    h, t, dh = SERVE.n_heads, SERVE.seq_len, SERVE.d_head
+    for dtype in (f32, torch.bfloat16):
+        topos = {"band": card_band(dtype), "empty row + duplicate": irregular_band(dtype)}
+        for label, topo in topos.items():
+            check(topo.max_row_nnz is None and not topo.host_known, "the card-built topology has a hint")
+            for causal in (True, False):
+                kw = dict(scale=0.3, causal=causal)
+                data = randn(rng, (h,) + tuple(topo.data.shape), dtype, 4.0)
+                m, l = _twice(lambda: bsm.stats(data, topo, **kw))
+                m_ref, l_ref = bsm.stats_reference(data, topo, **kw)
+                empty = m_ref < -5e29
+                check(torch.equal(m < -5e29, empty) and not bool(l[empty].any()), f"{label}: empty-row stats differ")
+                err = max(_ulp_or_rel(f"stats m {label}", m[~empty], m_ref[~empty], f32),
+                          _ulp_or_rel(f"stats l {label}", l[~empty], l_ref[~empty], f32))
+                errors["bsr_softmax_stats"] = max(errors.get("bsr_softmax_stats", 0.0), err)
+                p = _twice(lambda: bsm.normalize(data, m, l, topo, **kw))
+                want = bsm.normalize_reference(data, m, l, topo, out_dtype=dtype, **kw)
+                err_p = _ulp_or_rel(f"normalize {label}", p, want, dtype)
+                if dtype == f32:
+                    errors["bsr_softmax_normalize"] = max(errors.get("bsr_softmax_normalize", 0.0), err_p)
+                if label != "band":
+                    check(bool((m[:, 384:512] == bsm.NEG_INF).all()), "block-row 3 is not empty")
+                print(f"  bsr_softmax {label:<22} {str(dtype).split('.')[-1]:<8} causal={causal:d} H={h}: stats "
+                      f"max|kernel-plain| {err:.2e}, normalize {err_p:.2e}; twice bitwise equal", flush=True)
+        topo = topos["band"]
+        for d in (dh, 64):
+            q, k = randn(rng, (h, t, d), dtype, d ** -0.25), randn(rng, (h, t, d), dtype, d ** -0.25)
+            for causal in (True, False):
+                kw = dict(scale=d ** -0.5, causal=causal)
+                got = _twice(lambda: bsm.scores(q, k, topo, **kw))
+                want = bsm.scores_reference(q, k, topo, **kw)
+                live = want[0] > -5e29
+                check(torch.equal(got[0] > -5e29, live), "sdd_softmax: the masks differ")
+                err = max(_ulp_or_rel("sdd_softmax scores", got[0][live], want[0][live], f32),
+                          *(_ulp_or_rel("sdd_softmax stats", g, w, f32) for g, w in zip(got[1:], want[1:])))
+                errors["sdd_softmax"] = max(errors.get("sdd_softmax", 0.0), err)
+                probs = ops.sdd_softmax(q, k, topo, **kw)
+                with registry.forced_variant("torch_reference"):
+                    plain = ops.sdd_softmax(q, k, topo, **kw)
+                err_p = _ulp_or_rel("ops.sdd_softmax", probs.data, plain.data, dtype)
+                print(f"  sdd_softmax d_head {d:<3} {str(dtype).split('.')[-1]:<8} causal={causal:d} H={h}: scores "
+                      f"and stats max|kernel-plain| {err:.2e}, probabilities {err_p:.2e}; twice bitwise equal",
+                      flush=True)
+
+
+def flash_block_cases(rng, errors) -> None:
+    """(a): flash_block_attention (the flash kernels at H = 1) on the band
+    built on the card, T = 2048, d_head 128: output and the gradients of
+    both backward routes against the plain path (registry.forced_variant
+    around forward and backward); fp32 within 1e-4 * max|plain|, bf16
+    within ATOL (the flash kernels' bound since their port: P is rounded
+    to bf16 before P V); the kernel path twice, bitwise equal."""
+    t, dh = SERVE.seq_len, SERVE.d_head
+    for dtype in (f32, torch.bfloat16):
+        topo = card_band(dtype).with_transpose_metadata()
+        xs0 = [randn(rng, (t, dh), dtype, s) for s in (1.0, 1.0, 0.5)]
+        g = randn(rng, (t, dh), dtype, 0.5)
+        for fused_backward in (True, False):
+
+            def run():
+                xs = [x.clone().requires_grad_() for x in xs0]
+                out = attention.flash_block_attention(*xs, topo, causal=True, fused_backward=fused_backward)
+                (out.float() * g.float()).sum().backward()
+                return (out.detach(), *(x.grad for x in xs))
+
+            got = _twice(run)
+            with registry.forced_variant("torch_reference"):
+                want = run()
+            errs = []
+            for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+                check(bool(torch.isfinite(x.float()).all()) and float(y.float().abs().max()) > 0, f"flash {name}")
+                err = float((x.float() - y.float()).abs().max())
+                bound = 1e-4 * float(y.float().abs().max()) if dtype == f32 else ATOL
+                check(err <= bound, f"flash_block_attention {name} fused_backward={fused_backward}: {err} > {bound}")
+                errs.append(f"{name} {err:.2e}")
+                kname = {"out": "flash_mha_fwd", "dq": "flash_mha_dq"}.get(name, "flash_mha_dkv")
+                if dtype == f32 and (fused_backward or name == "out"):
+                    errors[kname] = max(errors.get(kname, 0.0), err)
+            print(f"  flash_block_attention H=1 T={t} {str(dtype).split('.')[-1]:<8} fused_backward="
+                  f"{fused_backward:d}: max|kernels-plain| {', '.join(errs)}; twice bitwise equal", flush=True)
+
+
+def default_config_lm() -> None:
+    """(a), fault 1: TransformerConfig() (d_head 64) on both attention
+    routes: lm_loss + backward() through the kernels against the plain
+    path on the card. fp32: loss within 1e-5 relative, every gradient
+    within 1e-3 * max|g|; bf16 (the defaults): finite, loss within 1e-2."""
+    for dtype in (f32, torch.bfloat16):
+        for fused in (False, True):
+            cfg = dataclasses.replace(tr.TransformerConfig(), fused_attention=fused, dtype=dtype)
+            lm = tr.init_lm_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+            tokens = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab, cfg.seq_len)).to(DEV)
+            losses, grads = [], []
+            for plain in (False, True):
+                lm.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                reset_launches()
+                with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+                    loss = tr.lm_loss(lm, tokens, cfg)
+                    loss.backward()
+                torch.cuda.synchronize()
+                n = 0 if plain else cfg.n_layers
+                want = launches(**dict.fromkeys(FLASH, n)) if fused else \
+                    launches(bsr_softmax_stats=n, bsr_softmax_normalize=n)
+                check(launch_counts() == want, f"default config fused={fused} plain={plain}: launches "
+                                               f"{launch_counts()}, expected {want}")
+                losses.append(loss.item())
+                grads.append({name: p.grad.detach().float().clone() for name, p in lm.named_parameters()})
+            check(all(np.isfinite(losses)), f"default config: non-finite loss {losses}")
+            check(all(bool(torch.isfinite(g).all()) for g in grads[0].values()), "default config: non-finite gradient")
+            rel = abs(losses[0] - losses[1]) / abs(losses[1])
+            worst = max((float((grads[0][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30), n)
+                        for n, g in grads[1].items())
+            print(f"  TransformerConfig() d_head {cfg.d_head} {str(dtype).split('.')[-1]:<8} fused={fused:d}: loss "
+                  f"kernels {losses[0]:.6f} plain {losses[1]:.6f} (rel {rel:.2e}); worst gradient {worst[1]} "
+                  f"{worst[0]:.2e} * max|g|; launches { {k: v for k, v in want.items() if v} }", flush=True)
+            check(rel <= (1e-5 if dtype == f32 else 1e-2), f"default config loss differs by {rel:.2e}")
+            if dtype == f32:
+                check(worst[0] <= 1e-3, f"default config gradient of {worst[1]} differs by {worst[0]:.2e}")
+            del lm
+
+
+def topk_attention(rng, errors) -> dict:
+    """(b): content-routed attention at the serving width. Per head,
+    topk_block_topology(q, k, 4) on the card; attention over it fused
+    (flash_block_attention: the metadata has no host copy) and unfused (SDD
+    -> softmax kernels -> DSD), and the probabilities by ops.sdd_softmax,
+    against the plain path; the topology build and the fused forward under
+    set_sync_debug_mode("error"). fp32 within 1e-4 * max|plain| (bf16
+    ATOL; probabilities one ulp). Returns the launches of the bf16 run
+    (counts set to 0 just before it)."""
+    h, t, dh = SERVE.n_heads, SERVE.seq_len, SERVE.d_head
+    scale = dh ** -0.5
+    counts = {}
+    for dtype in (f32, torch.bfloat16):
+        q, k, v = (randn(rng, (h, t, dh), dtype) for _ in range(3))
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            topos = [attention.topk_block_topology(q[i], k[i], TOPK_PAGES) for i in range(h)]
+            fused = torch.stack([attention.block_sparse_attention(q[i], k[i], v[i], topos[i], causal=True, fused=True)
+                                 for i in range(h)])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        unfused = torch.stack([attention.block_sparse_attention(q[i], k[i], v[i], topos[i], causal=True)
+                               for i in range(h)])
+        probs = [ops.sdd_softmax(q[i], k[i], topos[i], scale=scale, causal=True) for i in range(h)]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = launches(flash_mha_fwd=h, bsr_sdd=h, bsr_dsd_stream=h, bsr_softmax_stats=h,
+                        bsr_softmax_normalize=2 * h, sdd_softmax=h)
+        check(counts == want, f"top-k {dtype}: launches {counts}, expected {want}")
+        check(all(not tp.host_known and tp.max_row_nnz == TOPK_PAGES and tp.nnz_blocks == t // 128 * TOPK_PAGES
+                  for tp in topos), "top-k topologies: host copies or hints")
+        with registry.forced_variant("torch_reference"):
+            plain = torch.stack([attention.block_sparse_attention(q[i], k[i], v[i], topos[i], causal=True)
+                                 for i in range(h)])
+            plain_probs = [ops.sdd_softmax(q[i], k[i], topos[i], scale=scale, causal=True) for i in range(h)]
+        errs = []
+        for name, got in (("fused", fused), ("unfused", unfused)):
+            err = float((got.float() - plain.float()).abs().max())
+            bound = 1e-4 * float(plain.float().abs().max()) if dtype == f32 else ATOL
+            check(bool(torch.isfinite(got.float()).all()) and err <= bound, f"top-k {name} {dtype}: {err} > {bound}")
+            errs.append(f"{name} {err:.2e}")
+        err_p = max(_ulp_or_rel("top-k sdd_softmax", p.data, w.data, dtype) for p, w in zip(probs, plain_probs))
+        if dtype == f32:
+            cpu = attention.topk_block_topology(q[0].cpu(), k[0].cpu(), TOPK_PAGES)
+            check(all(torch.equal(getattr(topos[0], n).cpu(), getattr(cpu, n)) for n in ("offsets", "indices",
+                                                                                     "row_indices")),
+                  "the card's top-k metadata differs from the CPU build")
+        print(f"  top-k {TOPK_PAGES} of {t // 128} blocks per row, H={h} {str(dtype).split('.')[-1]:<8}: "
+              f"max|kernels-plain| {', '.join(errs)}, sdd_softmax probabilities {err_p:.2e}; topology build and "
+              f"fused forward with no synchronizing call; launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+    return counts
+
+
+def topk_serving(name_limit: str) -> None:
+    """(c): lm_generate_batched(mode="topk", k_pages=4) at the serving model,
+    4 requests x 1024-token prompts x 32 new tokens, greedy (twice, equal)
+    and at temperature 0.8 from a seeded generator (twice, equal); each
+    prefill layer launches SDD, the two softmax kernels and DSD once, the
+    top-k decode steps no kernel."""
+    lm = tr.init_lm_params(SERVE, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, SERVE.vocab, (N_REQUESTS, PROMPT))).to(DEV)
+    kw = dict(mode="topk", k_pages=TOPK_PAGES)
+    n = SERVE.n_layers * N_REQUESTS
+    want = launches(bsr_sdd=n, bsr_dsd_stream=n, bsr_softmax_stats=n, bsr_softmax_normalize=n)
+    for label, extra in (("greedy", {}), ("temperature 0.8", dict(temperature=0.8))):
+        runs, walls = [], []
+        for _ in range(2):
+            gen = torch.Generator(device=DEV).manual_seed(7) if extra else None
+            torch.cuda.synchronize()
+            reset_launches()
+            start = time.perf_counter()
+            runs.append(tr.lm_generate_batched(lm, prompts, SERVE, N_NEW, generator=gen, **kw, **extra))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            check(launch_counts() == want, f"top-k serving {label}: launches {launch_counts()}, expected {want}")
+        check(torch.equal(*runs), f"top-k serving {label}: two runs differ")
+        check(tuple(runs[0].shape) == (N_REQUESTS, N_NEW) and bool(((runs[0] >= 0) & (runs[0] < SERVE.vocab)).all()),
+              f"top-k serving {label}: bad tokens")
+        print(f"  top-k serving {label}: first tokens {runs[0][:, :6].tolist()}; {N_REQUESTS * N_NEW / walls[1]:.1f} "
+              f"generated tokens/s ({walls[1]:.3f} s wall, prefill included; informational) on {name_limit}",
+              flush=True)
+    del lm
+
+
+def attn_kernel_times(rng, name_limit: str, yard: dict) -> dict:
+    """(e): device times (CUDA graph, 10 warm-up + 100 timed) of the two
+    softmax kernels (8 heads, the serving band built on the card, bf16) and
+    the score pass of sdd_softmax (8 heads, d_head 128), beside their plain
+    versions, bounds and library yardsticks; and flash_block_attention's
+    three passes at H = 1 (printed; the flash kernels' JSON rows keep phase
+    5's 8-head times). Returns {kernel: ((ms, call), (plain ms, how))}."""
+    h, t, dh, bf16 = SERVE.n_heads, SERVE.seq_len, SERVE.d_head, torch.bfloat16
+    topo = card_band(bf16)
+    nnz, elems = topo.nnz_blocks, h * topo.nnz_blocks * 128 * 128
+    scale = dh ** -0.5
+    data = randn(rng, (h,) + tuple(topo.data.shape), bf16, 4.0)
+    m, l = bsm.stats(data, topo, scale=scale, causal=True)
+    q, k = randn(rng, (h, t, dh), bf16), randn(rng, (h, t, dh), bf16)
+    kw = dict(scale=scale, causal=True)
+    specs = {
+        "bsr_softmax_stats": (lambda: bsm.stats(data, topo, **kw), lambda: bsm.stats_reference(data, topo, **kw)),
+        "bsr_softmax_normalize": (lambda: bsm.normalize(data, m, l, topo, **kw),
+                                  lambda: bsm.normalize_reference(data, m, l, topo, out_dtype=bf16, **kw)),
+        "sdd_softmax": (lambda: bsm.scores(q, k, topo, **kw), lambda: bsm.scores_reference(q, k, topo, **kw)),
+    }
+    times = {kname: (time_ms(kern), _library_time(plain)) for kname, (kern, plain) in specs.items()}
+    stats_bytes = 2 * h * t * 4
+    # Library: torch.sparse.softmax over the COO of the same causal band
+    # pattern, the same scaled scores (all heads, one call); it computes
+    # the whole softmax, stats and normalize together.
+    i, j = np.arange(t)[:, None], np.arange(t)[None, :]
+    mask = torch.from_numpy((j <= i) & (i // 128 - j // 128 < SERVE.window_blocks)).to(DEV)
+    dense = topo.with_data(data).to_dense()
+    idx = mask.expand(h, t, t).nonzero().T
+    coo = torch.sparse_coo_tensor(idx, dense[mask.expand(h, t, t)].float() * scale, (h, t, t)).coalesce()
+    library = library_call("bsr_softmax_normalize", lambda: torch.sparse.softmax(coo, 2))
+    del dense, idx, coo
+    yard["bsr_softmax_stats"] = (*bound_ms(elems * 2 + stats_bytes, 4 * elems, FP32_FLOPS), None)
+    yard["bsr_softmax_normalize"] = (*bound_ms(2 * elems * 2 + stats_bytes, 4 * elems, FP32_FLOPS), library)
+    yard["sdd_softmax"] = (*bound_ms(2 * h * t * dh * 2 + elems * 4 + stats_bytes, 2 * elems * dh, BF16_FLOPS), None)
+    notes = {"bsr_softmax_stats": "library: none (no call computes the row stats alone)",
+             "sdd_softmax": "library: none (sampled_addmm takes no bf16 and computes no row stats)"}
+    for kname, ((ms, call), (plain, how)) in times.items():
+        lib = yard[kname][2]
+        lib_text = f"library {lib * 1e3:.2f} us (torch.sparse.softmax, COO, the whole softmax)" if lib else notes[kname]
+        print(f"  {kname:<22} H={h} T={t} {nnz} blocks bf16: kernel {ms * 1e3:.2f} us device / {call * 1e3:.2f} us "
+              f"call, plain {plain * 1e3:.2f} us ({how}), {lib_text}, bound {yard[kname][0] * 1e3:.2f} us "
+              f"({yard[kname][1]}; {yard[kname][0] / ms:.3f} of it) on {name_limit}", flush=True)
+    # flash_block_attention at H = 1: the flash kernels with one head.
+    topo1 = card_band(bf16).with_transpose_metadata()
+    q1, k1, v1, do1 = (randn(rng, (1, t, dh), bf16) for _ in range(4))
+    out, lse = fm.fwd(q1, k1, v1, topo1, **kw)
+    dvec = (do1.float() * out.float()).sum(-1)
+    bwd = (q1, k1, v1, do1, lse, dvec, topo1)
+    passes = {"flash_mha_fwd": (lambda: fm.fwd(q1, k1, v1, topo1, **kw), lambda: fm.fwd_reference(q1, k1, v1, topo1, **kw)),
+              "flash_mha_dq": (lambda: fm.dq(*bwd, **kw), lambda: fm.dq_reference(*bwd, **kw)),
+              "flash_mha_dkv": (lambda: fm.dkv(*bwd, **kw), lambda: fm.dkv_reference(*bwd, **kw))}
+    flops = {"flash_mha_fwd": 4, "flash_mha_dq": 6, "flash_mha_dkv": 8}
+    one = flash_yardsticks(topo1, q1, k1, v1, flops)
+    for kname, (kern, plain) in passes.items():
+        (ms, call), (plain_ms, _) = time_ms(kern), time_ms(plain)
+        lib = one[kname][2]
+        print(f"  flash_block_attention ({kname}) H=1 T={t} {nnz} blocks bf16: kernel {ms * 1e3:.2f} us device / "
+              f"{call * 1e3:.2f} us call, plain {plain_ms * 1e3:.2f} us, "
+              f"{'library %.2f us (SDPA, boolean band mask)' % (lib * 1e3) if lib else 'library: none'}, bound "
+              f"{one[kname][0] * 1e3:.2f} us ({one[kname][1]}; {one[kname][0] / ms:.3f} of it) on {name_limit}",
+              flush=True)
+    return times
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -1423,7 +1769,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     start = time.perf_counter()
     builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
-              bsr_ssd._kernel, bsr_dss._lib)
+              bsr_ssd._kernel, bsr_dss._lib, bsm._lib)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
         for built in [pool.submit(f) for f in builds]:
             built.result()
@@ -1452,8 +1798,9 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = launch_counts()
     expected = SERVE.n_layers * N_REQUESTS
-    check(main_launches == launches(bsr_dsd_stream=expected, bsr_sdd=expected),
-          f"kernel launches {main_launches}, expected {expected} of each sparse kernel and no other")
+    check(main_launches == launches(bsr_dsd_stream=expected, bsr_sdd=expected, bsr_softmax_stats=expected,
+                                    bsr_softmax_normalize=expected),
+          f"kernel launches {main_launches}, expected {expected} of SDD, DSD and the softmax kernels and no other")
     check(tuple(tokens.shape) == (N_REQUESTS, N_NEW), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < SERVE.vocab)).all()), "token id out of range")
     start = time.perf_counter()
@@ -1648,12 +1995,41 @@ def main() -> int:
     print(f"(e) kernel times at d = {SO_D} and {SO_D_LARGE}, density 0.1, NN, bf16 (CUDA-graph device time, "
           "10 warm-up + 100 timed; library calls are yardsticks the port never calls)", flush=True)
     so_times = so_kernel_times(rng, name_limit)
+    torch.cuda.empty_cache()
+
+    print(f"== phase 11: the rest of attention at the serving width (H {SERVE.n_heads}, T {SERVE.seq_len}, d_head "
+          f"{SERVE.d_head}, window {SERVE.window_blocks}, bf16 / fp32)", flush=True)
+    print("(a) kernels against their plain versions; flash_block_attention; TransformerConfig() (d_head 64) "
+          "on both attention routes", flush=True)
+    softmax_kernel_cases(np.random.default_rng(15), errors)
+    flash_block_cases(np.random.default_rng(16), errors)
+    torch.cuda.empty_cache()
+    default_config_lm()
+    print(f"(b) content-routed attention: topk_block_topology(q, k, {TOPK_PAGES}) per head, built on the card",
+          flush=True)
+    topk_launches = topk_attention(np.random.default_rng(17), errors)
+    main_launches["sdd_softmax"] = topk_launches["sdd_softmax"]
+    torch.cuda.empty_cache()
+    print(f"(c) top-k serving: lm_generate_batched(mode=\"topk\", k_pages={TOPK_PAGES}), {N_REQUESTS} requests x "
+          f"{PROMPT}-token prompts x {N_NEW} new tokens", flush=True)
+    topk_serving(name_limit)
+    torch.cuda.empty_cache()
+    print(f"(d) python -m sputnik_tpu_torch.bench.serving (batch 1 / 8 / 32 x band / topk-4; n1 16, n2 80, 3 runs: "
+          f"the JAX bench's protocol, not cut) on {name_limit}", flush=True)
+    for line in serving_bench.run():
+        print(json.dumps({k: (round(v, 2) if isinstance(v, float) else v) for k, v in line.items()}), flush=True)
+    torch.cuda.empty_cache()
+    print("(e) kernel times (CUDA-graph device time, 10 warm-up + 100 timed; library calls are yardsticks the "
+          "port never calls)", flush=True)
+    times.update(attn_kernel_times(np.random.default_rng(18), name_limit, yard))
 
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
     # runs of phase 8 for the FFN kernels, the fine-tune and the attention
     # chain of phase 9 for the SELL kernels, the routes and gradients of
-    # phase 10 for the sparse-output kernels.
+    # phase 10 for the sparse-output kernels, the serving run of phase 3 for
+    # the softmax kernels and the content-routed attention of phase 11 (b)
+    # for sdd_softmax.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -1670,6 +2046,9 @@ def main() -> int:
         "bsr_sparse_out": ("sputnik_tpu_torch/csrc/bsr_ssd.cu", "sputnik_tpu/kernels/bsr_ssd.py:130"),
         "bsr_dss_masked": ("sputnik_tpu_torch/csrc/bsr_dss.cu", "sputnik_tpu/kernels/bsr_dss.py:200"),
         "bsr_dss_worklist": ("sputnik_tpu_torch/csrc/bsr_dss.cu", "sputnik_tpu/kernels/bsr_dss.py:498"),
+        "bsr_softmax_stats": ("sputnik_tpu_torch/csrc/bsr_softmax.cu", "sputnik_tpu/kernels/bsr_softmax.py:56"),
+        "bsr_softmax_normalize": ("sputnik_tpu_torch/csrc/bsr_softmax.cu", "sputnik_tpu/kernels/bsr_softmax.py:86"),
+        "sdd_softmax": ("sputnik_tpu_torch/csrc/bsr_softmax.cu", "sputnik_tpu/kernels/flash_attention.py:262"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.

@@ -17,7 +17,12 @@ the sparse-output and sparse x sparse products SSD / SDS / DSS / SSS with
 their gradients on four more (``csrc/bsr_flat.cu``, ``csrc/bsr_ssd.cu``,
 ``csrc/bsr_dss.cu``: exact host-planned work lists, and output-stationary,
 position-map and device-built work-list kernels for metadata built on the
-card) and the DSS benchmark.
+card) and the DSS benchmark; the rest of block-sparse attention on three
+more (``csrc/bsr_softmax.cu``: the BSR softmax's stats and normalize
+passes, which need no max_row_nnz hint, and the fused SDD + softmax's
+score pass) and on the flash kernels at one head
+(``flash_block_attention``): content-routed top-k attention, top-k and
+sampled serving, and the serving benchmark.
 Entry points build on the CUDA card unless given ``device="cpu"``. It
 imports torch and never jax.
 """

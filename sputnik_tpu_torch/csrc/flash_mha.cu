@@ -19,6 +19,10 @@
 // deterministic), and an empty row or column stores zeros because its loop
 // runs zero times.
 //
+// Head dim: a template parameter (DH), instantiated at every multiple of 16
+// up to 128 (the repo's configs use 64 and 128); the largest, 128 in fp32,
+// takes 135 KB of shared memory in the forward.
+//
 // Tiles: a CTA owns 64 query rows (fwd, dQ: half of a 128 query block,
 // walking 128-key blocks) or 64 keys (dK/dV: half of a key block, walking
 // the column's query blocks in two 64-row halves). 8 warps. Operand tiles
@@ -40,184 +44,11 @@
 // 64 FLOP/byte; L2 serves the K/V blocks that neighbouring tiles share.
 // This first version does not overlap loads with math (no cp.async / TMA
 // pipeline, wmma rather than wgmma), so it is bound by load latency.
-#include "bsr_tile.cuh"
+#include "attn_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-constexpr int BS = 128;      // topology block size
-constexpr int DH = 128;      // head dim
-constexpr int TM = 64;       // rows of a CTA's tile (queries, or keys for dK/dV)
-constexpr int THREADS = bsr::THREADS;  // 256: 8 warps
-constexpr float NEG_INF = -1e30f;
-constexpr float POS_BIG = 1e30f;
-
-static_assert(THREADS == 4 * TM, "row-wise work maps 4 threads to a row");
-
-template <typename T>
-constexpr int pad() {  // 16 bytes of row padding
-  return 16 / int(sizeof(T));
-}
-constexpr int align128(int bytes) { return (bytes + 127) & ~127; }
-
-// --------------------------------------------------------------- products --
-// C[M x N] = op(A)[M x K] . op(B)[K x N] with both operands in shared
-// memory. TA: A is stored K x M (row stride lda); TB: B is stored N x K.
-template <typename T, int M, int N, bool TA, bool TB>
-struct Mma;
-
-template <int M, int N, bool TA, bool TB>
-struct Mma<bf16, M, N, TA, TB> {
-  static constexpr int WM = M / 4, WN = N / 2;  // 4 x 2 warps
-  static constexpr int FM = WM / 16, FN = WN / 16;
-  using LA = typename std::conditional<TA, nvcuda::wmma::col_major,
-                                       nvcuda::wmma::row_major>::type;
-  using LB = typename std::conditional<TB, nvcuda::wmma::col_major,
-                                       nvcuda::wmma::row_major>::type;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-
-  __device__ int wm() const { return (threadIdx.x / 32 / 2) * WM; }
-  __device__ int wn() const { return (threadIdx.x / 32 % 2) * WN; }
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
-  }
-
-  template <int K>
-  __device__ void run(const bf16* A, int lda, const bf16* B, int ldb) {
-    const int m0 = wm(), n0 = wn();
-#pragma unroll 2
-    for (int kk = 0; kk < K; kk += 16) {
-      nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16, LA> fa[FM];
-      nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16, LB> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int m = m0 + 16 * i;
-        nvcuda::wmma::load_matrix_sync(fa[i], TA ? A + kk * lda + m : A + m * lda + kk, lda);
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int n = n0 + 16 * j;
-        nvcuda::wmma::load_matrix_sync(fb[j], TB ? B + n * ldb + kk : B + kk * ldb + n, ldb);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-
-  // C into fp32 shared memory, row stride ldc.
-  __device__ void store(float* C, int ldc) {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        nvcuda::wmma::store_matrix_sync(C + (wm() + 16 * i) * ldc + wn() + 16 * j, acc[i][j],
-                                        ldc, nvcuda::wmma::mem_row_major);
-  }
-
-  // scale * C into global memory (row stride ldg, bf16 or fp32), through a
-  // per-warp 16x16 fp32 scratch (8 KB of shared memory in all).
-  __device__ void store_out(void* g, int64_t ldg, float scale, bool out_f32, float* scratch) {
-    const int lane = threadIdx.x % 32;
-    float* ws = scratch + (threadIdx.x / 32) * 256;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        nvcuda::wmma::store_matrix_sync(ws, acc[i][j], 16, nvcuda::wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = wm() + 16 * i + e / 16;
-          const int c = wn() + 16 * j + e % 16;
-          bsr::store_one(g, r * ldg + c, ws[e] * scale, out_f32);
-        }
-        __syncwarp();
-      }
-  }
-};
-
-template <int M, int N, bool TA, bool TB>
-struct Mma<float, M, N, TA, TB> {
-  // Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i, columns
-  // tx + 16 j.
-  static constexpr int RM = M / 16, RN = N / 16;
-  float acc[RM][RN];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = 0.0f;
-  }
-
-  template <int K>
-  __device__ void run(const float* A, int lda, const float* B, int ldb) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float a[RM], b[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int m = ty + 16 * i;
-        a[i] = TA ? A[k * lda + m] : A[m * lda + k];
-      }
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int n = tx + 16 * j;
-        b[j] = TB ? B[n * ldb + k] : B[k * ldb + n];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  __device__ void store(float* C, int ldc) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) C[(ty + 16 * i) * ldc + tx + 16 * j] = acc[i][j];
-  }
-
-  __device__ void store_out(void* g, int64_t ldg, float scale, bool out_f32, float*) {
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j)
-        bsr::store_one(g, (ty + 16 * i) * ldg + tx + 16 * j, acc[i][j] * scale, out_f32);
-  }
-};
-
-// Reductions over the 4 consecutive lanes that share a row.
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
-
-// _keep_mask (sputnik_tpu/kernels/flash_attention.py:243): query row qi of
-// block-row r against key kj of block-column c, both within their block.
-__device__ __forceinline__ bool keep(bool causal, int r, int c, int qi, int kj) {
-  return !causal || r > c || (r == c && qi >= kj);
-}
+using namespace attn;
 
 struct Args {
   const void* q;  // (H, T, DH)
@@ -237,7 +68,7 @@ struct Args {
 };
 
 // ---------------------------------------------------------------- forward --
-template <typename T>
+template <typename T, int DH>
 struct FwdSmem {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int LQ = DH + pad<T>(), LK = LQ, LS = BS + 4;
@@ -249,9 +80,9 @@ struct FwdSmem {
   static constexpr int BYTES = F32 ? P + align128(TM * LS * 4) : P + align128(TM * LP * sizeof(T));
 };
 
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
-  using L = FwdSmem<T>;
+  using L = FwdSmem<T, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q);
   T* KVs = reinterpret_cast<T*>(smem + L::KV);
@@ -329,7 +160,7 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Args a) {
 }
 
 // --------------------------------------------------------------------- dQ --
-template <typename T>
+template <typename T, int DH>
 struct DqSmem {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int LQ = DH + pad<T>(), LK = LQ, LS = BS + 4;
@@ -343,9 +174,9 @@ struct DqSmem {
   static constexpr int BYTES = F32 ? D + align128(TM * LS * 4) : DS + align128(TM * LP * sizeof(T));
 };
 
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
-  using L = DqSmem<T>;
+  using L = DqSmem<T, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::Q);
   T* dOs = reinterpret_cast<T*>(smem + L::DO);
@@ -407,7 +238,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Args a) {
 }
 
 // ------------------------------------------------------------------- dK/dV --
-template <typename T>
+template <typename T, int DH>
 struct DkvSmem {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int LQ = DH + pad<T>(), LK = LQ, LS = TM + 4;
@@ -425,9 +256,9 @@ struct DkvSmem {
   static_assert(2 * TM * LS * 4 >= 8 * 256 * 4, "S and dP hold the epilogue's scratch");
 };
 
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(Args a) {
-  using L = DkvSmem<T>;
+  using L = DkvSmem<T, DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem + L::K);
   T* Vs = reinterpret_cast<T*>(smem + L::V);
@@ -511,45 +342,85 @@ int launch(void (*kernel)(Args), const Args& a, int tiles, int heads, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
+enum Pass { FWD, DQ, DKV };
+
+template <typename T, int DH>
+int launch_pass(Pass pass, const Args& a, int tiles, int heads, cudaStream_t st) {
+  switch (pass) {
+    case FWD:
+      return launch<T, FwdSmem<T, DH>>(fwd_kernel<T, DH>, a, tiles, heads, st);
+    case DQ:
+      return launch<T, DqSmem<T, DH>>(dq_kernel<T, DH>, a, tiles, heads, st);
+    default:
+      return launch<T, DkvSmem<T, DH>>(dkv_kernel<T, DH>, a, tiles, heads, st);
+  }
+}
+
+// The head dims instantiated: every multiple of 16 up to 128. Each is six
+// kernels of build time.
+template <typename T>
+int launch_dh(Pass pass, int dh, const Args& a, int tiles, int heads, cudaStream_t st) {
+  switch (dh) {
+    case 16:
+      return launch_pass<T, 16>(pass, a, tiles, heads, st);
+    case 32:
+      return launch_pass<T, 32>(pass, a, tiles, heads, st);
+    case 48:
+      return launch_pass<T, 48>(pass, a, tiles, heads, st);
+    case 64:
+      return launch_pass<T, 64>(pass, a, tiles, heads, st);
+    case 80:
+      return launch_pass<T, 80>(pass, a, tiles, heads, st);
+    case 96:
+      return launch_pass<T, 96>(pass, a, tiles, heads, st);
+    case 112:
+      return launch_pass<T, 112>(pass, a, tiles, heads, st);
+    case 128:
+      return launch_pass<T, 128>(pass, a, tiles, heads, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int run(Pass pass, int in_f32, int dh, const Args& a, int tiles, int heads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return in_f32 ? launch_dh<float>(pass, dh, a, tiles, heads, st)
+                : launch_dh<bf16>(pass, dh, a, tiles, heads, st);
+}
+
 }  // namespace
 
 // Each entry point returns cudaGetLastError() after the launch (or the
-// error of setting the shared-memory size). t and tk are multiples of 128;
-// head dim 128; all tensors contiguous.
+// error of setting the shared-memory size; cudaErrorInvalidValue for a
+// head dim that is not instantiated). t and tk are multiples of 128; all
+// tensors contiguous.
 extern "C" int flash_mha_fwd(const void* q, const void* k, const void* v, const void* offsets,
                              const void* indices, void* out, void* lse, int heads, int t, int tk,
-                             float scale, int causal, int in_f32, int out_f32, void* stream) {
+                             int dh, float scale, int causal, int in_f32, int out_f32,
+                             void* stream) {
   Args a{q, k, v, nullptr, nullptr, nullptr, static_cast<const int*>(offsets),
          static_cast<const int*>(indices), out, nullptr, static_cast<float*>(lse), t, tk, scale,
          causal, out_f32};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = t / TM;
-  return in_f32 ? launch<float, FwdSmem<float>>(fwd_kernel<float>, a, tiles, heads, st)
-                : launch<bf16, FwdSmem<bf16>>(fwd_kernel<bf16>, a, tiles, heads, st);
+  return run(FWD, in_f32, dh, a, t / TM, heads, stream);
 }
 
 extern "C" int flash_mha_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* dvec, const void* offsets,
-                            const void* indices, void* dq, int heads, int t, int tk, float scale,
-                            int causal, int in_f32, int out_f32, void* stream) {
+                            const void* indices, void* dq, int heads, int t, int tk, int dh,
+                            float scale, int causal, int in_f32, int out_f32, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),
          static_cast<const int*>(offsets), static_cast<const int*>(indices), dq, nullptr, nullptr,
          t, tk, scale, causal, out_f32};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = t / TM;
-  return in_f32 ? launch<float, DqSmem<float>>(dq_kernel<float>, a, tiles, heads, st)
-                : launch<bf16, DqSmem<bf16>>(dq_kernel<bf16>, a, tiles, heads, st);
+  return run(DQ, in_f32, dh, a, t / TM, heads, stream);
 }
 
 extern "C" int flash_mha_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* dvec, const void* offsets_t,
                              const void* indices_t, void* dk, void* dv, int heads, int t, int tk,
-                             float scale, int causal, int in_f32, int out_f32, void* stream) {
+                             int dh, float scale, int causal, int in_f32, int out_f32,
+                             void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),
          static_cast<const int*>(offsets_t), static_cast<const int*>(indices_t), dk, dv, nullptr,
          t, tk, scale, causal, out_f32};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = tk / TM;
-  return in_f32 ? launch<float, DkvSmem<float>>(dkv_kernel<float>, a, tiles, heads, st)
-                : launch<bf16, DkvSmem<bf16>>(dkv_kernel<bf16>, a, tiles, heads, st);
+  return run(DKV, in_f32, dh, a, tk / TM, heads, stream);
 }

@@ -12,8 +12,18 @@ torch, as the JAX package does outside its kernels, then launches the dQ
 kernel (walking each query block-row) and the dK/dV kernel (walking each
 key block-column through the transpose metadata).
 
-The kernels take bf16 or fp32 operands of one dtype, head dim 128 and
-block size 128; on CUDA tensors anything else raises ``ValueError``. On CPU
+The kernels take bf16 or fp32 operands of one dtype, a head dim in
+``HEAD_DIMS`` (the instantiated kernels) and block size 128; on CUDA
+tensors anything else raises ``ValueError``.
+
+A (row, column) block stored twice counts once, as the JAX package's pair
+plan counts it (``np.unique``, ``sputnik_tpu/kernels/flash_mha.py:52-79``):
+for metadata known on the host ``flash_mha`` runs on the topology with the
+duplicates merged (:func:`dedup_topology`, built once per topology). The
+kernels themselves walk every stored block, which is what
+``flash_block_attention`` computes (``kernels/flash_attention.py``); a
+topology built on the card is used as it is, since finding its duplicates
+would read it back. On CPU
 tensors each pass computes its plain PyTorch version (``fwd_reference``,
 ``dq_reference``, ``dkv_reference``: dense masked math in fp32 on the
 densified topology), inside the same forward and backward, so the CPU runs
@@ -30,6 +40,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix
@@ -38,14 +49,16 @@ from sputnik_tpu_torch.ops import registry
 
 __all__ = [
     "flash_mha", "fwd", "dq", "dkv", "fwd_reference", "dq_reference", "dkv_reference",
-    "launch_fwd", "launch_dq", "launch_dkv", "LAUNCHES",
+    "launch_fwd", "launch_dq", "launch_dkv", "LAUNCHES", "HEAD_DIMS", "FlashMHA", "passes", "dedup_topology",
 ]
 
 # Kernel launches in this process, by kernel; each launch adds one.
 LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_dq": 0, "flash_mha_dkv": 0}
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-HEAD_DIM = 128
+# Head dims csrc/flash_mha.cu instantiates: every multiple of 16 up to 128
+# (the repo's configs use 64 and 128).
+HEAD_DIMS = tuple(range(16, 129, 16))
 NEG_INF = -1e30  # finite mask value: a fully masked row gives p = 0, not NaN
 POS_BIG = 1e30  # lse of a row with no mass: exp(s - POS_BIG) = 0
 
@@ -54,7 +67,7 @@ POS_BIG = 1e30  # lse of a row with no mass: exp(s - POS_BIG) = 0
 def _lib():
     lib = _build.load("flash_mha")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i32] * 3 + [f32] + [i32] * 3 + [ptr]  # heads, t, tk, scale, causal, in_f32, out_f32, stream
+    tail = [i32] * 4 + [f32] + [i32] * 3 + [ptr]  # heads, t, tk, dh, scale, causal, in_f32, out_f32, stream
     for fn, n_ptrs in ((lib.flash_mha_fwd, 7), (lib.flash_mha_dq, 9), (lib.flash_mha_dkv, 10)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ptr] * n_ptrs + tail
@@ -81,8 +94,9 @@ def _check_problem(kernel: str, topology: BlockSparseMatrix, **operands):
         raise ValueError(f"{kernel}: expected q (H, T, dh), k and v (H, Tk, dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     h, t, dh = q.shape
-    if dh != HEAD_DIM or k.shape[2] != HEAD_DIM:
-        raise ValueError(f"{kernel}: head dim must be {HEAD_DIM}, got {dh}")
+    if dh not in HEAD_DIMS or k.shape[2] != dh:
+        raise ValueError(f"{kernel}: head dim must be one of {HEAD_DIMS} (the instantiated kernels) and equal "
+                         f"for q and k, got {dh} and {k.shape[2]}")
     if k.shape[0] != h:
         raise ValueError(f"{kernel}: {h} query heads but {k.shape[0]} key heads")
     if "dout" in operands and operands["dout"].shape != q.shape:
@@ -93,7 +107,7 @@ def _check_problem(kernel: str, topology: BlockSparseMatrix, **operands):
         raise ValueError(f"{kernel}: topology {topology.shape} does not fit T={t}, Tk={k.shape[1]}")
     if h > 65535:
         raise ValueError(f"{kernel}: more than 65535 heads")
-    return h, t, k.shape[1]
+    return h, t, k.shape[1], dh
 
 
 def _check_tensor(kernel: str, name: str, x: torch.Tensor, shape, dtypes, device) -> None:
@@ -131,34 +145,34 @@ def launch_fwd(q, k, v, topology, out, lse, *, causal: bool, scale: float) -> No
     """Launch ``flash_mha_fwd`` into ``out`` (q's shape, bf16 or fp32) and
     ``lse`` ((H, T) fp32)."""
     kernel = "flash_mha_fwd"
-    h, t, tk = _check_problem(kernel, topology, q=q, k=k, v=v)
+    h, t, tk, dh = _check_problem(kernel, topology, q=q, k=k, v=v)
     _check_tensor(kernel, "out", out, q.shape, KERNEL_DTYPES, q.device)
     _check_tensor(kernel, "lse", lse, (h, t), (torch.float32,), q.device)
     offsets, indices = _metadata(kernel, topology, False, q.device)
     err = _lib().flash_mha_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets, indices, out.data_ptr(), lse.data_ptr(),
-        h, t, tk, scale, int(causal), int(q.dtype == torch.float32), int(out.dtype == torch.float32),
+        h, t, tk, dh, scale, int(causal), int(q.dtype == torch.float32), int(out.dtype == torch.float32),
         _stream(q.device),
     )
     _raise_on(kernel, err)
 
 
 def _check_backward(kernel, q, k, v, dout, lse, dvec, topology):
-    h, t, tk = _check_problem(kernel, topology, q=q, k=k, v=v, dout=dout)
+    h, t, tk, dh = _check_problem(kernel, topology, q=q, k=k, v=v, dout=dout)
     _check_tensor(kernel, "lse", lse, (h, t), (torch.float32,), q.device)
     _check_tensor(kernel, "dvec", dvec, (h, t), (torch.float32,), q.device)
-    return h, t, tk
+    return h, t, tk, dh
 
 
 def launch_dq(q, k, v, dout, lse, dvec, topology, dq_out, *, causal: bool, scale: float) -> None:
     """Launch ``flash_mha_dq`` into ``dq_out`` (q's shape, bf16 or fp32)."""
     kernel = "flash_mha_dq"
-    h, t, tk = _check_backward(kernel, q, k, v, dout, lse, dvec, topology)
+    h, t, tk, dh = _check_backward(kernel, q, k, v, dout, lse, dvec, topology)
     _check_tensor(kernel, "dq", dq_out, q.shape, KERNEL_DTYPES, q.device)
     offsets, indices = _metadata(kernel, topology, False, q.device)
     err = _lib().flash_mha_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-        offsets, indices, dq_out.data_ptr(), h, t, tk, scale, int(causal),
+        offsets, indices, dq_out.data_ptr(), h, t, tk, dh, scale, int(causal),
         int(q.dtype == torch.float32), int(dq_out.dtype == torch.float32), _stream(q.device),
     )
     _raise_on(kernel, err)
@@ -168,46 +182,53 @@ def launch_dkv(q, k, v, dout, lse, dvec, topology, dk_out, dv_out, *, causal: bo
     """Launch ``flash_mha_dkv`` into ``dk_out`` and ``dv_out`` (k's shape,
     one dtype, bf16 or fp32)."""
     kernel = "flash_mha_dkv"
-    h, t, tk = _check_backward(kernel, q, k, v, dout, lse, dvec, topology)
+    h, t, tk, dh = _check_backward(kernel, q, k, v, dout, lse, dvec, topology)
     _check_tensor(kernel, "dk", dk_out, k.shape, KERNEL_DTYPES, q.device)
     _check_tensor(kernel, "dv", dv_out, k.shape, (dk_out.dtype,), q.device)
     offsets_t, indices_t = _metadata(kernel, topology, True, q.device)
     err = _lib().flash_mha_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
-        offsets_t, indices_t, dk_out.data_ptr(), dv_out.data_ptr(), h, t, tk, scale, int(causal),
+        offsets_t, indices_t, dk_out.data_ptr(), dv_out.data_ptr(), h, t, tk, dh, scale, int(causal),
         int(q.dtype == torch.float32), int(dk_out.dtype == torch.float32), _stream(q.device),
     )
     _raise_on(kernel, err)
 
 
 # ---------------------------------------------------------- plain versions --
-def _keep(topology: BlockSparseMatrix, causal: bool, device) -> torch.Tensor:
-    """(T, Tk) bool: the topology's blocks, densified, and the causal mask
-    (query position >= key position, which is flash_attention._keep_mask's
-    block rule for equal block sizes)."""
+def _multiplicity(topology: BlockSparseMatrix, causal: bool, device) -> torch.Tensor:
+    """(T, Tk) fp32: how many times the topology stores each element's block
+    (0 where it stores none, 2 for a block stored twice: the kernels walk
+    every stored block), zeroed by the causal mask (query position >= key
+    position, flash_attention._keep_mask's block rule for equal block
+    sizes)."""
     bs, br, bc = topology.block_size, topology.block_rows, topology.block_cols
     flat = topology.row_indices.long().to(device) * bc + topology.indices.long().to(device)
-    # index_fill_ with a scalar: no host tensor, so a CUDA graph can capture it.
-    blocks = torch.zeros(br * bc, dtype=torch.bool, device=device).index_fill_(0, flat, True)
-    keep = blocks.view(br, bc).repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+    # Whole counts: the sum is exact in any order. No host tensor, so a CUDA
+    # graph can capture it.
+    counts = torch.zeros(br * bc, dtype=torch.float32, device=device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=device))
+    mult = counts.view(br, bc).repeat_interleave(bs, 0).repeat_interleave(bs, 1)
     if causal:
-        keep &= torch.arange(topology.rows, device=device)[:, None] >= torch.arange(topology.cols, device=device)
-    return keep
+        mult = mult * (torch.arange(topology.rows, device=device)[:, None]
+                       >= torch.arange(topology.cols, device=device))
+    return mult
 
 
 def _p_ds(q, k, v, dout, lse, dvec, topology, causal, scale):
-    """P = exp(S - lse) on the mask and dS = P * (dO V^T - dvec), in fp32."""
+    """P = exp(S - lse) on the mask, times each block's multiplicity, and
+    dS = P * (dO V^T - dvec), in fp32."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.where(_keep(topology, causal, q.device), torch.exp(s - lse[..., None]), 0.0)
+    mult = _multiplicity(topology, causal, q.device)
+    p = torch.where(mult > 0, torch.exp(s - lse[..., None]), 0.0) * mult
     return p, p * (torch.matmul(dout.float(), v.float().transpose(-1, -2)) - dvec[..., None])
 
 
 def fwd_reference(q, k, v, topology, *, causal: bool, scale: float, out_dtype=None):
     """(out, lse) of the forward in dense fp32 math; lse is (H, T) fp32."""
-    keep = _keep(topology, causal, q.device)
-    s = torch.where(keep, torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, NEG_INF)
+    mult = _multiplicity(topology, causal, q.device)
+    s = torch.where(mult > 0, torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(keep, torch.exp(s - m), 0.0)
+    p = torch.where(mult > 0, torch.exp(s - m), 0.0) * mult
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p, v.float()) / l.clamp(min=1e-30)
     lse = torch.where(l > 0, m + torch.log(l.clamp(min=1e-30)), POS_BIG)[..., 0]
@@ -256,6 +277,39 @@ def dkv(q, k, v, dout, lse, dvec, topology, *, causal: bool, scale: float, out_d
     return dk, dv
 
 
+# ------------------------------------------------------ duplicated blocks --
+def _merge_duplicates(topology: BlockSparseMatrix) -> Optional[BlockSparseMatrix]:
+    """The merged topology, or None without a duplicate (the cache then
+    holds no reference to ``topology``)."""
+    offsets, indices, _ = topology.host_metadata()
+    rows = np.repeat(np.arange(topology.block_rows, dtype=np.int64), np.diff(offsets))
+    keys = rows * topology.block_cols + indices
+    uniq = np.unique(keys)
+    if len(uniq) == len(keys):
+        return None
+    u_rows = uniq // topology.block_cols
+    u_offsets = np.concatenate([[0], np.cumsum(np.bincount(u_rows, minlength=topology.block_rows))])
+    bs = topology.block_size
+    # The kernels read only the metadata: the blocks are a stride-0 view.
+    data = torch.zeros((), dtype=topology.dtype, device=topology.device).expand(len(uniq), bs, bs)
+    merged = BlockSparseMatrix.create(data, u_offsets.astype(np.int32),
+                                      (uniq % topology.block_cols).astype(np.int32), topology.shape)
+    return merged.with_transpose_metadata()
+
+
+def dedup_topology(topology: BlockSparseMatrix) -> BlockSparseMatrix:
+    """``topology`` with each (row, column) block once, for metadata known
+    on the host (cached per metadata tensors); ``topology`` itself when it
+    has no duplicate or its metadata was built on the card."""
+    if not topology.host_known or topology.nnz_blocks == 0:
+        return topology
+    from sputnik_tpu_torch.ops.matmul import cached_plan
+
+    merged = cached_plan((topology.offsets, topology.indices), ("flash_dedup",),
+                         lambda: _merge_duplicates(topology))
+    return topology if merged is None else merged
+
+
 # ---------------------------------------------------- autograd and dispatch --
 _Passes = collections.namedtuple("_Passes", "fwd dq dkv")
 _PASSES = {
@@ -264,18 +318,20 @@ _PASSES = {
 }
 
 
-def _passes(q, k, v, topology, variant: Optional[str]) -> _Passes:
+def passes(q, k, v, topology, variant: Optional[str] = None) -> _Passes:
+    """The (fwd, dq, dkv) functions of the registry's first fit for the
+    problem, or of ``variant``."""
     return _PASSES[registry.dispatch_name("flash_mha", q, k, v, topology, variant=variant)]
 
 
-class _FlashMHA(torch.autograd.Function):
+class FlashMHA(torch.autograd.Function):
     """custom_vjp of ``flash_mha`` (``flash_mha.py:526-545``): the forward
     saves (q, k, v, out, lse). Like the matmul VJPs, the backward dispatches
     when it runs, so ``registry.forced_variant`` governs it there."""
 
     @staticmethod
     def forward(ctx, q, k, v, topology, causal, scale, variant):
-        out, lse = _passes(q, k, v, topology, variant).fwd(q, k, v, topology, causal=causal, scale=scale)
+        out, lse = passes(q, k, v, topology, variant).fwd(q, k, v, topology, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.meta = (topology, causal, scale, variant)
         return out
@@ -284,11 +340,11 @@ class _FlashMHA(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         topology, causal, scale, variant = ctx.meta
-        passes = _passes(q, k, v, topology, variant)
+        fns = passes(q, k, v, topology, variant)
         g = g.contiguous()  # the LM hands back a permuted gradient
         dvec = (g.float() * out.float()).sum(dim=-1)
-        dq_ = passes.dq(q, k, v, g, lse, dvec, topology, causal=causal, scale=scale)
-        dk_, dv_ = passes.dkv(q, k, v, g, lse, dvec, topology, causal=causal, scale=scale)
+        dq_ = fns.dq(q, k, v, g, lse, dvec, topology, causal=causal, scale=scale)
+        dk_, dv_ = fns.dkv(q, k, v, g, lse, dvec, topology, causal=causal, scale=scale)
         return dq_, dk_, dv_, None, None, None, None
 
 
@@ -302,7 +358,7 @@ def _on_cpu(q, k, v, topology, **_) -> bool:
 
 def _launcher(name: str):
     def run(q, k, v, topology, *, causal, scale):
-        return _FlashMHA.apply(q, k, v, topology, causal, scale, name)
+        return FlashMHA.apply(q, k, v, topology, causal, scale, name)
     return run
 
 
@@ -346,7 +402,8 @@ def flash_mha(
         return torch.zeros_like(q)
     if n_rows % rows_per_step:
         raise ValueError(f"flash_mha needs query block rows divisible by rows_per_step={rows_per_step}")
+    topology = dedup_topology(topology)
     # Not registry.dispatch, whose launchers pin the variant for the
     # backward too: here the backward resolves its own when it runs.
-    return _FlashMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(), topology,
+    return FlashMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(), topology,
                            bool(causal), float(scale), None)

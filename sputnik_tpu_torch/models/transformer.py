@@ -9,9 +9,12 @@ every parameter (the loop, ``loss.backward()`` and ``torch.optim.Adam``, is
 the caller's, as ``examples/sparse_transformer_lm.py`` writes it with
 optax). Serving: :func:`lm_prefill` runs the full sparse forward over a
 prompt and fills per-layer KV caches; :func:`lm_decode_step` decodes one
-token per sequence against the caches with the band mask;
+token per sequence against the caches, with the band mask (``mode="band"``)
+or over content-routed top-k pages (``mode="topk"``);
 :func:`lm_generate_batched` prefills each prompt and then decodes the batch
-together. Serving runs under ``torch.no_grad()`` and builds no graph.
+together, greedily or sampling at a temperature from an explicit
+``torch.Generator`` (JAX's PRNG key). Serving runs under
+``torch.no_grad()`` and builds no graph.
 
 The parameters live in :class:`SparseLM` (an ``nn.Module`` on an explicit
 device) whose ``state_dict`` keys follow the JAX parameter tree
@@ -50,6 +53,8 @@ __all__ = [
     "lm_decode_step",
     "lm_generate",
     "lm_generate_batched",
+    "decode_tokens",
+    "sample_tokens",
 ]
 
 Caches = List[Dict[str, torch.Tensor]]
@@ -232,19 +237,27 @@ def init_decode_caches(cfg: TransformerConfig, max_len: int, *, device=None) -> 
     ]
 
 
-def block_decode(params: Block, x: torch.Tensor, cfg: TransformerConfig, cache, pos: int, *, mode: str = "band"):
+def block_decode(params: Block, x: torch.Tensor, cfg: TransformerConfig, cache, pos: int, *, mode: str = "band",
+                 k_pages: Optional[int] = None):
     """One block for one token per sequence at position ``pos``: x is
     (..., d), the caches (..., H, max_len, dh) and written in place.
-    Returns y (..., d)."""
-    if mode != "band":
-        raise ValueError(f"mode {mode!r} is not ported; only 'band' is")
+    ``mode="band"`` reproduces the training band topology's mask exactly;
+    ``mode="topk"`` attends over ``k_pages`` (default ``window_blocks``)
+    cache pages chosen by content among positions ``<= pos``. Returns y
+    (..., d)."""
+    if mode not in ("band", "topk"):
+        raise ValueError(f"mode must be 'band' or 'topk', got {mode!r}")
     lead = x.shape[:-1]
     a_in = _layernorm(x, params.ln1_scale, params.ln1_bias)
     qkv = (a_in @ params.wqkv).to(cfg.dtype).reshape(lead + (3, cfg.n_heads, cfg.d_head))
     q, k_new, v_new = qkv.unbind(dim=-3)  # (..., H, dh)
     cache["k"][..., pos, :] = k_new
     cache["v"][..., pos, :] = v_new
-    o = attn_lib.decode_band_attention(q, cache["k"], cache["v"], cfg.window_blocks, pos)
+    if mode == "band":
+        o = attn_lib.decode_band_attention(q, cache["k"], cache["v"], cfg.window_blocks, pos)
+    else:
+        o = attn_lib.decode_topk_attention(q, cache["k"], cache["v"],
+                                           cfg.window_blocks if k_pages is None else k_pages, valid_len=pos + 1)
     x = x + (o.reshape(lead + (cfg.d_model,)) @ params.wo).to(cfg.dtype)
     f_in = _layernorm(x, params.ln2_scale, params.ln2_bias)
     return x + moe_lib.moe_one(params.moe, f_in, cfg.moe_cfg())
@@ -280,14 +293,42 @@ def lm_prefill(params: SparseLM, prompt: torch.Tensor, cfg: TransformerConfig, m
 
 @torch.no_grad()
 def lm_decode_step(params: SparseLM, token: torch.Tensor, caches: Caches, pos: int,
-                   cfg: TransformerConfig, *, mode: str = "band"):
+                   cfg: TransformerConfig, *, mode: str = "band", k_pages: Optional[int] = None):
     """One decode step: token ids (...,) -> logits (..., vocab); the caches
     are updated in place and returned."""
     x = params.embed[token.long()]
     for bp, cache in zip(params.blocks, caches):
-        x = block_decode(bp, x, cfg, cache, pos, mode=mode)
+        x = block_decode(bp, x, cfg, cache, pos, mode=mode, k_pages=k_pages)
     x = _layernorm(x, params.lnf_scale, params.lnf_bias)
     return _logits(x, params.embed), caches
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Token ids from logits (..., vocab): the argmax at ``temperature <=
+    0``, else a draw from ``softmax(logits / temperature)`` by the
+    Gumbel-max rule on uniforms from ``generator`` (on the logits' device),
+    as ``jax.random.categorical`` draws. The draws are not JAX's bits."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    return (logits.float() / temperature + gumbel).argmax(dim=-1)
+
+
+@torch.no_grad()
+def decode_tokens(params: SparseLM, first_logits: torch.Tensor, caches: Caches, tp: int, cfg: TransformerConfig,
+                  n_new: int, *, mode: str = "band", k_pages: Optional[int] = None, temperature: float = 0.0,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The decode loop after prefill: pick a token from ``first_logits``
+    (B, vocab), then ``n_new - 1`` steps at positions ``tp``, ``tp + 1``, ...
+    (the caches are updated in place). Returns (B, n_new) token ids."""
+    token = sample_tokens(first_logits, temperature, generator)
+    out = [token]
+    for i in range(n_new - 1):
+        logits, caches = lm_decode_step(params, token, caches, tp + i, cfg, mode=mode, k_pages=k_pages)
+        token = sample_tokens(logits, temperature, generator)
+        out.append(token)
+    return torch.stack(out, dim=1)
 
 
 @torch.no_grad()
@@ -299,10 +340,18 @@ def lm_generate_batched(
     *,
     max_len: Optional[int] = None,
     mode: str = "band",
+    k_pages: Optional[int] = None,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Greedy batched generation: one sparse prefill per prompt, then the
-    batch decodes together, one Python step per token, all sequences at the
-    same position. Returns (B, n_new) token ids."""
+    """Batched generation: one sparse prefill per prompt, then the batch
+    decodes together, one Python step per token, all sequences at the same
+    position. ``temperature=0`` is greedy; ``temperature > 0`` samples from
+    ``softmax(logits / temperature)`` with ``generator`` (on the model's
+    device), and raises without one, as the JAX package raises without a
+    key. Returns (B, n_new) token ids."""
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a torch.Generator")
     if n_new < 1:
         raise ValueError(f"n_new must be >= 1, got {n_new}")
     if prompts.ndim != 2:
@@ -316,16 +365,14 @@ def lm_generate_batched(
         {name: torch.stack([c[layer][name] for c, _ in per_seq]) for name in ("k", "v")}
         for layer in range(cfg.n_layers)
     ]
-    token = torch.stack([logits for _, logits in per_seq]).argmax(dim=-1)
-    out = [token]
-    for i in range(n_new - 1):
-        logits, caches = lm_decode_step(params, token, caches, tp + i, cfg, mode=mode)
-        token = logits.argmax(dim=-1)
-        out.append(token)
-    return torch.stack(out, dim=1)
+    first = torch.stack([logits for _, logits in per_seq])
+    return decode_tokens(params, first, caches, tp, cfg, n_new, mode=mode, k_pages=k_pages,
+                         temperature=temperature, generator=generator)
 
 
 def lm_generate(params: SparseLM, prompt: torch.Tensor, cfg: TransformerConfig, n_new: int, *,
-                max_len: Optional[int] = None, mode: str = "band") -> torch.Tensor:
-    """Greedy generation for one prompt (Tp,); returns (n_new,) token ids."""
-    return lm_generate_batched(params, prompt[None], cfg, n_new, max_len=max_len, mode=mode)[0]
+                max_len: Optional[int] = None, mode: str = "band", k_pages: Optional[int] = None,
+                temperature: float = 0.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Generation for one prompt (Tp,); returns (n_new,) token ids."""
+    return lm_generate_batched(params, prompt[None], cfg, n_new, max_len=max_len, mode=mode, k_pages=k_pages,
+                               temperature=temperature, generator=generator)[0]

@@ -7,7 +7,9 @@ differentiable entry points (``ops/autodiff.py``); ``matmul_*`` are the raw
 dispatching front ends and ``matmul`` picks one by operand type. Both take
 the same options, ``variant=`` included. ``plan_*`` build the exact work
 lists (``FlatSchedule``) of the sparse-output ops on the host. ``flash_mha`` is
-registered with the variants ``cuda_flash`` and ``torch_reference``.
+registered with the variants ``cuda_flash`` and ``torch_reference``;
+``bsr_softmax`` takes ``variant="pallas"`` (its two kernels) or ``"jnp"``
+(the torch chain); ``sdd_softmax`` is the fused SDD + softmax.
 """
 
 from sputnik_tpu_torch.ops import registry
@@ -16,7 +18,7 @@ from sputnik_tpu_torch.ops.matmul import (
     FlatSchedule, matmul, matmul_dds, matmul_dsd, matmul_dss, matmul_sdd, matmul_sds, matmul_ssd, matmul_sss,
     plan_dss, plan_sds, plan_ssd, plan_sss,
 )
-from sputnik_tpu_torch.ops.softmax import bsr_softmax
+from sputnik_tpu_torch.ops.softmax import bsr_softmax, sdd_softmax
 
 # Imported after ``registry``: the kernel modules register themselves in it.
 from sputnik_tpu_torch.kernels.flash_mha import flash_mha  # noqa: E402  isort: skip
@@ -25,5 +27,5 @@ from sputnik_tpu_torch.ops import csr  # noqa: E402  isort: skip
 __all__ = [
     "matmul", "matmul_dsd", "matmul_dds", "matmul_sdd", "matmul_ssd", "matmul_sds", "matmul_dss", "matmul_sss",
     "dsd", "dds", "sdd", "ssd", "sds", "dss", "sss", "FlatSchedule", "plan_ssd", "plan_sds", "plan_dss",
-    "plan_sss", "registry", "bsr_softmax", "flash_mha", "csr",
+    "plan_sss", "registry", "bsr_softmax", "sdd_softmax", "flash_mha", "csr",
 ]

@@ -9,8 +9,12 @@ DSD, DDS and SDD:
    ``torch.matmul``, on any device, as the JAX package hands it to XLA's
    dense dot.
 2. the Hopper kernel (``cuda_stream`` for DSD/DDS, ``cuda_output_stationary``
-   for SDD) — every CUDA problem; the wrapper raises for one it cannot take.
-3. ``torch_reference`` — the plain PyTorch version, for CPU tensors only.
+   for SDD) — the CUDA problems the JAX package's Pallas predicates accept
+   (128-multiple blocks and dense dim, bf16 / fp32); the wrapper raises for
+   the rest of what it cannot take (mixed dtypes, misaligned data).
+3. ``jnp_fallback`` — the rest of the CUDA problems (a head dim of 64, an
+   empty operand): the densify detour, the JAX package's own fallback.
+4. ``torch_reference`` — the plain PyTorch version, for CPU tensors only.
 
 SSD / SDS / DSS / SSS follow the JAX package's first-fit order, with its
 "concrete metadata" read as "metadata known on the host"
@@ -35,8 +39,8 @@ per operand / topology pair, keyed on the metadata tensors through weak
 references, so that a backward through the same topologies never plans
 again and a forward with warm plans reads nothing from the card.
 
-No CUDA problem reaches a plain version unless it is named through
-``variant=`` (or :func:`registry.forced_variant`).
+No CUDA problem a kernel takes reaches a plain version unless it is
+named through ``variant=`` (or :func:`registry.forced_variant`).
 """
 
 from __future__ import annotations
@@ -77,18 +81,54 @@ def _dense_can(sparse: BlockSparseMatrix) -> bool:
     return sparse.density >= DENSIFY_THRESHOLD
 
 
-# The CUDA predicates claim every problem on the card; the kernel wrappers
-# raise for one the kernel does not take instead of handing it elsewhere.
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _kernel_ok(sparse: BlockSparseMatrix, dense_dim: int, *dtypes) -> bool:
+    """The JAX package's ``_pallas_ok``: 128-multiple blocks and dense dim,
+    bf16 / fp32 dtypes. The CUDA kernels take what it takes; the wrappers
+    still raise for the rest of what they do not take (mixed dtypes,
+    misaligned data)."""
+    return sparse.block_size % 128 == 0 and dense_dim % 128 == 0 and all(d in _KERNEL_DTYPES for d in dtypes)
+
+
+def _dsd_cuda_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    n_dim = b.shape[-2] if transpose_b else b.shape[-1]
+    return (_on_cuda(a, b) and a.nnz_blocks > 0
+            and _kernel_ok(a, n_dim, a.dtype, b.dtype, out_dtype or a.dtype))
+
+
+def _dds_cuda_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    m_dim = a.shape[-1] if transpose_a else a.shape[-2]
+    return (_on_cuda(a, b) and b.nnz_blocks > 0
+            and _kernel_ok(b, m_dim, a.dtype, b.dtype, out_dtype or b.dtype))
+
+
+def _sdd_cuda_can(a, b, t, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    k_dim = a.shape[-2] if transpose_a else a.shape[-1]
+    return _on_cuda(a, b, t) and _kernel_ok(t, k_dim, a.dtype, b.dtype, out_dtype or t.dtype)
+
+
+def _cuda_fallback_can(*args, **_) -> bool:
+    return _on_cuda(*args)
+
+
+# First fit on the card, as the JAX package's: the kernel for what its
+# ``_dsd_can`` / ``_dds_can`` / ``_sdd_can`` accept, else ``jnp_fallback``,
+# the densify detour (one fp32 torch.matmul, JAX's hand-off to XLA's dot).
 registry.register("dsd", "xla_dense_detour", lambda a, b, **kw: _dense_can(a), reference.dsd)
-registry.register("dsd", "cuda_stream", lambda a, b, **kw: _on_cuda(a, b), bsr_dsd.dsd)
+registry.register("dsd", "cuda_stream", _dsd_cuda_can, bsr_dsd.dsd)
+registry.register("dsd", "jnp_fallback", _cuda_fallback_can, reference.dsd)
 registry.register("dsd", "torch_reference", _cpu_can, reference.dsd)
 
 registry.register("dds", "xla_dense_detour", lambda a, b, **kw: _dense_can(b), reference.dds)
-registry.register("dds", "cuda_stream", lambda a, b, **kw: _on_cuda(a, b), bsr_dsd.dds)
+registry.register("dds", "cuda_stream", _dds_cuda_can, bsr_dsd.dds)
+registry.register("dds", "jnp_fallback", _cuda_fallback_can, reference.dds)
 registry.register("dds", "torch_reference", _cpu_can, reference.dds)
 
 registry.register("sdd", "xla_dense_detour", lambda a, b, t, **kw: _dense_can(t), reference.sdd)
-registry.register("sdd", "cuda_output_stationary", lambda a, b, t, **kw: _on_cuda(a, b, t), bsr_sdd.sdd)
+registry.register("sdd", "cuda_output_stationary", _sdd_cuda_can, bsr_sdd.sdd)
+registry.register("sdd", "jnp_fallback", _cuda_fallback_can, reference.sdd)
 registry.register("sdd", "torch_reference", _cpu_can, reference.sdd)
 
 

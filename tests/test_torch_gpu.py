@@ -8,7 +8,11 @@ kernels (against their plain versions, run to run, and with no host read
 in the ops' forwards and backwards), and the sparse-output kernels
 (bsr_flat, bsr_sparse_out, bsr_dss_masked, bsr_dss_worklist: against their
 plain versions, run to run, their first-fit routes, and no host read with
-warm plans).
+warm plans), and the rest of attention (the BSR softmax kernels on
+metadata built on the card with no hint, the fused SDD + softmax,
+flash_block_attention on both backward routes, the small LM at the default
+config's head dim 64 on both attention routes, content-routed top-k
+attention with no host read, and top-k / sampled serving).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -27,6 +31,8 @@ from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
 from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.kernels import bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_sdd, bsr_ssd, reference, sell
+from sputnik_tpu_torch.kernels import bsr_softmax as bsm
+from sputnik_tpu_torch.kernels import flash_attention as fa
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
@@ -107,9 +113,14 @@ def test_registry_routes_cuda_to_kernels(cuda):
     assert registry.dispatch_name("dds", b.T.contiguous(), a) == "cuda_stream"
     assert registry.dispatch_name("sdd", b.T.contiguous(), b.T.contiguous(), a, transpose_b=True) \
         == "cuda_output_stationary"
-    # A CUDA problem the kernel does not take raises; it never falls back.
-    with pytest.raises(ValueError, match="multiple of 128"):
-        ops.dsd(a, b[:, :64].contiguous())
+    # What the JAX package's Pallas predicates refuse (N = 64) takes the
+    # densify detour, JAX's jnp_fallback; what they accept and the kernel
+    # does not take raises, it never falls back.
+    narrow = b[:, :64].contiguous()
+    assert registry.dispatch_name("dsd", a, narrow) == "jnp_fallback"
+    launches = bsr_dsd.LAUNCHES
+    torch.testing.assert_close(ops.dsd(a, narrow), reference.dsd(a, narrow), atol=0, rtol=0)
+    assert bsr_dsd.LAUNCHES == launches
     with pytest.raises(ValueError, match="one dtype"):
         ops.dsd(a, b.float())
 
@@ -177,7 +188,7 @@ def test_flash_wrappers_raise_on_cuda(cuda):
     """A problem the kernels do not take raises ValueError on the card; it
     never falls back to the plain version."""
     topo = attention.causal_block_topology(256, window_blocks=2, device=cuda)
-    q = torch.zeros(2, 256, 64, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(2, 256, 40, device=cuda, dtype=torch.bfloat16)  # not an instantiated head dim
     with pytest.raises(ValueError, match="head dim"):
         fm.flash_mha(q, q, q, topo, causal=True)
     q = torch.zeros(2, 256, 128, device=cuda, dtype=torch.float16)
@@ -511,3 +522,211 @@ def test_sparse_out_wrappers_raise_on_cuda(cuda):
     small = testing.random_bsr(rng, 256, 256, 256 * 256 // 4, 64, device=cuda)
     with pytest.raises(ValueError, match="block size"):
         bsr_ssd.ssd(small, x, small)
+
+
+def _close(got, want, dtype):
+    """fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp."""
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    else:
+        assert testing.bf16_ulp_excess(got, want) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_softmax_kernels_match_plain(cuda, dtype, causal):
+    """The two BSR softmax kernels on metadata built on the card with no
+    hint (3 heads, unordered columns, an empty block-row, a duplicated
+    block, a block above the diagonal) against their plain versions and
+    the torch chain; two runs bitwise equal; the gradient against the
+    chain's."""
+    topo = testing.bsr_from_blocks(512, 512, [0, 0, 2, 2, 2, 3, 3], [1, 0, 2, 0, 2, 3, 0],
+                                   np.zeros((7, BS, BS)), dtype=dtype, device=cuda)
+    card = dss_bench.card_built(topo, False)
+    assert card.max_row_nnz is None and not card.host_known
+    data = _randn(np.random.default_rng(30), (3,) + tuple(topo.data.shape), cuda, dtype) * 4
+    before = dict(bsm.LAUNCHES)
+    m, l = bsm.stats(data, card, scale=0.5, causal=causal)
+    m_ref, l_ref = bsm.stats_reference(data, card, scale=0.5, causal=causal)
+    assert torch.equal(m_ref < -1e29, m < -1e29) and torch.equal(l[m < -1e29], l_ref[m < -1e29])
+    live = m_ref > -1e29
+    _close(m[live], m_ref[live], torch.float32)
+    _close(l[live], l_ref[live], torch.float32)
+    p = ops.bsr_softmax(card.with_data(data), scale=0.5, causal=causal)
+    _close(p.data.float(), ops.bsr_softmax(card.with_data(data), scale=0.5, causal=causal,
+                                           variant="jnp").data.float(), dtype)
+    assert torch.equal(p.data, ops.bsr_softmax(card.with_data(data), scale=0.5, causal=causal).data)
+    assert {k: bsm.LAUNCHES[k] - before[k] for k in before} == \
+        {"bsr_softmax_stats": 3, "bsr_softmax_normalize": 2, "sdd_softmax": 0}
+    if dtype == torch.float32:
+        w = _randn(np.random.default_rng(31), tuple(data.shape), cuda, dtype)
+        grads = []
+        for variant in ("pallas", "jnp"):
+            x = data.clone().requires_grad_()
+            (ops.bsr_softmax(card.with_data(x), scale=0.5, causal=causal, variant=variant).data * w).sum().backward()
+            grads.append(x.grad)
+        _close(*grads, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_sdd_softmax_kernel_matches_plain(cuda, dtype, dh):
+    """The score pass (scores, m, l) and ops.sdd_softmax against their plain
+    versions, 2 heads, causal band."""
+    topo = attention.causal_block_topology(512, window_blocks=2, dtype=dtype, device=cuda)
+    rng = np.random.default_rng(32)
+    q, k = (_randn(rng, (2, 512, dh), cuda, dtype) for _ in range(2))
+    got = bsm.scores(q, k, topo, scale=dh ** -0.5, causal=True)
+    want = bsm.scores_reference(q, k, topo, scale=dh ** -0.5, causal=True)
+    for g, w in zip(got, want):
+        live = w > -1e29
+        assert torch.equal(g > -1e29, live)
+        _close(g[live], w[live], torch.float32)
+    probs = ops.sdd_softmax(q, k, topo, scale=dh ** -0.5, causal=True)
+    with registry.forced_variant("torch_reference"):
+        plain = ops.sdd_softmax(q, k, topo, scale=dh ** -0.5, causal=True)
+    _close(probs.data.float(), plain.data.float(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", fm.HEAD_DIMS)
+def test_flash_head_dims_match_plain(cuda, dh, dtype):
+    """Every instantiated head dim: the three flash kernels and the score
+    pass of sdd_softmax against their plain versions (fp32 outputs), on a
+    causal band of 2 heads."""
+    topo = attention.causal_block_topology(512, window_blocks=2, dtype=dtype, device=cuda).with_transpose_metadata()
+    rng = np.random.default_rng(37)
+    q, k, v, do = (_randn(rng, (2, 512, dh), cuda, dtype) for _ in range(4))
+    kw = dict(causal=True, scale=dh ** -0.5, out_dtype=torch.float32)
+    out, lse = fm.fwd(q, k, v, topo, **kw)
+    ref_out, ref_lse = fm.fwd_reference(q, k, v, topo, **kw)
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    args = (q, k, v, do, ref_lse, (do.float() * ref_out).sum(-1), topo)
+    torch.testing.assert_close(fm.dq(*args, **kw), fm.dq_reference(*args, **kw), atol=ATOL, rtol=0)
+    for got, want in zip(fm.dkv(*args, **kw), fm.dkv_reference(*args, **kw)):
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    got = bsm.scores(q, k, topo, scale=dh ** -0.5, causal=True)
+    want = bsm.scores_reference(q, k, topo, scale=dh ** -0.5, causal=True)
+    for g, w in zip(got, want):
+        live = w > -1e29
+        assert torch.equal(g > -1e29, live)
+        _close(g[live], w[live], torch.float32)
+
+
+@pytest.mark.parametrize("fused_backward", [True, False])
+def test_flash_block_attention_on_card(cuda, fused_backward):
+    """flash_block_attention (the flash kernels at one head) on metadata
+    built on the card, fp32: output and gradients against the plain path,
+    and the launches of each backward route."""
+    topo = dss_bench.card_built(attention.causal_block_topology(512, window_blocks=2, dtype=torch.float32,
+                                                                device=cuda))
+    rng = np.random.default_rng(33)
+    xs0 = [_randn(rng, (512, 128), cuda, torch.float32) for _ in range(3)]
+    g = _randn(rng, (512, 128), cuda, torch.float32)
+    results = []
+    for plain in (False, True):
+        xs = [x.clone().requires_grad_() for x in xs0]
+        before = dict(fm.LAUNCHES), bsr_sdd.LAUNCHES, bsr_dsd.LAUNCHES, dict(bsm.LAUNCHES)
+        with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+            out = fa.flash_block_attention(*xs, topo, causal=True, fused_backward=fused_backward)
+            (out * g).sum().backward()
+        torch.cuda.synchronize()
+        flash = {n: fm.LAUNCHES[n] - before[0][n] for n in fm.LAUNCHES}
+        chain = (bsr_sdd.LAUNCHES - before[1], bsr_dsd.LAUNCHES - before[2],
+                 bsm.LAUNCHES["bsr_softmax_stats"] - before[3]["bsr_softmax_stats"])
+        if plain:
+            assert flash == dict.fromkeys(flash, 0) and chain == (0, 0, 0)
+        elif fused_backward:
+            assert flash == dict.fromkeys(flash, 1) and chain == (0, 0, 0)
+        else:  # forward; the chain's forward (SDD, softmax, DSD) and its VJPs
+            assert flash == {"flash_mha_fwd": 1, "flash_mha_dq": 0, "flash_mha_dkv": 0}
+            assert chain == (2, 4, 1)
+        results.append([out.detach()] + [x.grad for x in xs])
+    for got, want in zip(*results):
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fused", [False, True])
+def test_default_config_lm_on_card(cuda, fused, dtype):
+    """TransformerConfig() (d_head 64) trains on the card on both attention
+    routes: lm_loss and backward() through the kernels (flash at head dim
+    64; unfused the softmax kernels, SDD / DSD at K or N = 64 on the densify
+    detour) against the same weights on the plain path: the loss within
+    1e-5 relative (bf16: 1e-2) and every gradient within 1e-3 * max|g|
+    (bf16: finite)."""
+    cfg = dataclasses.replace(tr.TransformerConfig(), fused_attention=fused, dtype=dtype)
+    assert cfg.d_head == 64
+    lm = tr.init_lm_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(34).integers(0, cfg.vocab, cfg.seq_len)).to(cuda)
+    losses, grads = [], []
+    for plain in (False, True):
+        lm.zero_grad(set_to_none=True)
+        before = dict(fm.LAUNCHES), dict(bsm.LAUNCHES), bsr_sdd.LAUNCHES, bsr_dsd.LAUNCHES
+        with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+            loss = tr.lm_loss(lm, tokens, cfg)
+            loss.backward()
+        torch.cuda.synchronize()
+        counts = ({n: fm.LAUNCHES[n] - before[0][n] for n in fm.LAUNCHES},
+                  {n: bsm.LAUNCHES[n] - before[1][n] for n in bsm.LAUNCHES},
+                  bsr_sdd.LAUNCHES - before[2], bsr_dsd.LAUNCHES - before[3])
+        n = 0 if plain else cfg.n_layers
+        assert counts[0] == dict.fromkeys(fm.LAUNCHES, n if fused else 0)
+        assert counts[1] == {"bsr_softmax_stats": 0 if fused else n, "bsr_softmax_normalize": 0 if fused else n,
+                             "sdd_softmax": 0}
+        assert counts[2:] == (0, 0)
+        losses.append(loss.item())
+        grads.append({name: p.grad.detach().float().clone() for name, p in lm.named_parameters()})
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= (1e-5 if dtype == torch.float32 else 1e-2) * abs(losses[1])
+    for name, g in grads[1].items():
+        assert bool(torch.isfinite(grads[0][name]).all()), name
+        if dtype == torch.float32:
+            assert float((grads[0][name] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + 1e-6, name
+
+
+def test_topk_attention_on_card_reads_nothing_back(cuda):
+    """topk_block_topology built on the card and the fused attention over it
+    run under set_sync_debug_mode("error"); the metadata equals the CPU
+    build's; fused and unfused attention against the plain path, fp32, with
+    the launches of each route."""
+    rng = np.random.default_rng(35)
+    q, k, v = (_randn(rng, (512, 128), cuda, torch.float32) for _ in range(3))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        topo = attention.topk_block_topology(q, k, 2)
+        fused = attention.block_sparse_attention(q, k, v, topo, causal=True, fused=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = attention.topk_block_topology(q.cpu(), k.cpu(), 2)
+    assert not topo.host_known and (topo.max_row_nnz, topo.max_col_nnz) == (2, 4)
+    for name in ("offsets", "indices", "row_indices"):
+        assert torch.equal(getattr(topo, name).cpu(), getattr(cpu, name)), name
+    before = bsr_sdd.LAUNCHES, bsr_dsd.LAUNCHES, dict(bsm.LAUNCHES)
+    unfused = attention.block_sparse_attention(q, k, v, topo, causal=True)
+    assert (bsr_sdd.LAUNCHES - before[0], bsr_dsd.LAUNCHES - before[1]) == (1, 1)
+    assert {n: bsm.LAUNCHES[n] - before[2][n] for n in bsm.LAUNCHES} == \
+        {"bsr_softmax_stats": 1, "bsr_softmax_normalize": 1, "sdd_softmax": 0}
+    with registry.forced_variant("torch_reference"):
+        plain = attention.block_sparse_attention(q, k, v, topo, causal=True)
+    _close(fused, plain, torch.float32)
+    _close(unfused, plain, torch.float32)
+
+
+def test_generate_topk_on_card_matches_cpu(cuda):
+    """The small LM, fp32: greedy top-k tokens on the card equal the CPU's;
+    sampling at temperature 0.8 is reproducible from a seeded generator on
+    the card."""
+    cfg = tr.TransformerConfig(d_model=256, n_heads=2, seq_len=512, window_blocks=2, n_experts=2,
+                               d_ff=128, n_layers=2, vocab=128, dtype=torch.float32)
+    cpu = tr.init_lm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = tr.SparseLM(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(36).integers(0, cfg.vocab, (2, 256)))
+    got = tr.lm_generate_batched(gpu, tokens.to(cuda), cfg, 8, mode="topk", k_pages=2)
+    assert torch.equal(got.cpu(), tr.lm_generate_batched(cpu, tokens, cfg, 8, mode="topk", k_pages=2))
+    draws = [tr.lm_generate_batched(gpu, tokens.to(cuda), cfg, 8, mode="topk", k_pages=2, temperature=0.8,
+                                    generator=torch.Generator(device=cuda).manual_seed(5)) for _ in range(2)]
+    assert torch.equal(*draws) and bool(((draws[0] >= 0) & (draws[0] < cfg.vocab)).all())

@@ -179,7 +179,8 @@ def test_moe_grads_match_jax(path, impl):
 
 def test_create_hints_from_host_metadata():
     """numpy and CPU-tensor metadata give the hints create always computed;
-    hints the caller passes are kept as given."""
+    hints the caller passes are kept as given; the BSR softmax reads the
+    offsets and needs no hint."""
     offsets = np.array([0, 2, 2, 5], np.int32)  # rows of 2, 0 and 3 blocks
     indices = np.array([0, 3, 0, 1, 3], np.int32)  # columns hit 2, 1, 0, 2 times
     data = torch.zeros(5, 128, 128)
@@ -189,9 +190,11 @@ def test_create_hints_from_host_metadata():
         assert (m.max_row_nnz, m.min_row_nnz, m.max_col_nnz, m.min_col_nnz) == (3, 0, 2, 0)
     m = BlockSparseMatrix.create(data, offsets, indices, shape, max_row_nnz=7, max_col_nnz=9)
     assert (m.max_row_nnz, m.min_row_nnz, m.max_col_nnz, m.min_col_nnz) == (7, 0, 9, 0)
-    # A reader that needs a hint refuses a matrix without one.
-    with pytest.raises(ValueError, match="max_row_nnz"):
-        bsr_softmax(dataclasses.replace(m, max_row_nnz=None))
+    # The softmax gives the same probabilities without the hint.
+    m = m.with_data(torch.randn(5, 128, 128, generator=torch.Generator().manual_seed(0)))
+    want = bsr_softmax(m, causal=True).data
+    torch.testing.assert_close(bsr_softmax(dataclasses.replace(m, max_row_nnz=None), causal=True).data, want,
+                               atol=0, rtol=0)
 
 
 def test_lm_topologies_carry_the_moe_topology():
