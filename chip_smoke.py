@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the nine CUDA libraries from csrc/ (one nvcc each, all
+   versions; build the eleven CUDA libraries from csrc/ (one nvcc each, all
    started together) and print the seconds.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
@@ -122,7 +122,34 @@ Phases (any failure raises and the script exits non-zero):
    flash_block_attention's passes at H = 1, beside their plain versions,
    bounds and library yardsticks.
 
-The line before the last is {"kernels": [...]} (eighteen kernels, each
+12. Small-block sparse training and int8 quantized serving: (a)
+   bsr_small_dsd and bsr_small_sdd at bs 16 / 32 / 64 in all four modes, bf16
+   and fp32, at d = 4096, density 0.25 (SDD: K = 4096), and a ragged case
+   (unordered columns, rows not a multiple of pack, an empty super-row);
+   bsr_dsd_stream on int8 operands, DSD and DDS in all four modes (int32
+   sums equal, fp32 / bf16 outputs scaled); bsr_bres in bf16, fp32 and int8
+   at q 8 and 4 in all four modes, and its DDS on metadata built on the
+   card (the plan built there): fp32 within 1e-4 * max|plain|, bf16 within
+   one bf16 ulp, every kernel twice bitwise equal; (b) the first-fit routes
+   at bs 32 and 64: host-known DSD / DDS / SDD / SSD / SDS / DSS on
+   cuda_smallblock with exact launches, card-built metadata on jnp_fallback
+   without a raise, the host-known forwards again under
+   set_sync_debug_mode("error"); (c) block_rigl_demo at full width: the
+   trained ffn_w1 pruned at bs 32 to 25% (prune.block_magnitude_prune),
+   2048 tokens of x ~ N(0, 16) (the demo's step size relative to the
+   loss's curvature), a dense teacher, 10 fp32 SGD steps at lr 0.5 with one
+   rigl_block_update (drop 0.2) after step 5: the loss falls over steps
+   0-5, the last below the first, the budget and the host copy kept, one
+   bsr_small_dsd and one bsr_small_sdd per step, fp32 gradients within
+   1e-4 * max|g| of the plain path, step 7 under set_sync_debug_mode
+   ("error"); a bs 64 forward and backward; (d) examples/quantized_serving.py's
+   recipe on ffn_w1 (block-pruned at 128 to 25%, 2048 tokens) through
+   matmul_dds_q8 with both kernels and the per-block-row matmul_dsd_q8: the
+   int8 error against the pruned fp32 layer below 0.03, the int32 sums
+   equal to plain; (e) the four kernels' device times at d = 4096, 25%,
+   NN, beside their plain versions, bounds and library yardsticks.
+
+The line before the last is {"kernels": [...]} (twenty-two kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -141,19 +168,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sputnik_tpu_torch import ops
+from sputnik_tpu_torch import ops, prune
 from sputnik_tpu_torch.bench import dlmc as dlmc_bench
 from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.bench import moe as moe_bench
 from sputnik_tpu_torch.bench import serving as serving_bench
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_dense
-from sputnik_tpu_torch.kernels import _build, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_sdd, bsr_ssd, sell
+from sputnik_tpu_torch.kernels import (_build, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small,
+                                       bsr_ssd, sell)
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.ops import csr as csr_ops
-from sputnik_tpu_torch.ops import registry
+from sputnik_tpu_torch.ops import quant, registry
 from sputnik_tpu_torch.utils import dlmc_gen, testing
 from sputnik_tpu_torch.utils.profiling import time_ms
 from sputnik_tpu_torch.utils.testing import ATOL
@@ -418,7 +446,9 @@ def ffn_cases(rng, errors):
 
 # ------------------------------------------------------------- phases 6, 7 --
 def reset_launches() -> None:
-    bsr_dsd.LAUNCHES = bsr_sdd.LAUNCHES = bsr_flat.LAUNCHES = bsr_ssd.LAUNCHES = 0
+    bsr_dsd.LAUNCHES = bsr_dsd.LAUNCHES_Q8 = bsr_sdd.LAUNCHES = bsr_flat.LAUNCHES = bsr_ssd.LAUNCHES = 0
+    bsr_qstream.LAUNCHES = 0
+    bsr_small.LAUNCHES.update(dict.fromkeys(bsr_small.LAUNCHES, 0))
     bsr_dss.LAUNCHES.update(dict.fromkeys(bsr_dss.LAUNCHES, 0))
     fm.LAUNCHES.update(dict.fromkeys(FLASH, 0))
     bsr_ffn.LAUNCHES.update(dict.fromkeys(FFN, 0))
@@ -1756,6 +1786,449 @@ def attn_kernel_times(rng, name_limit: str, yard: dict) -> dict:
     return times
 
 
+# ---------------------------------------------------------------- phase 12 --
+# Small-block (16 / 32 / 64) sparse training and int8 quantized serving, at
+# the JAX bench's headline shape (4096^2, density 0.25) and on the trained
+# DLMC-protocol weights.
+SB_D, SB_DENSITY = 4096, 0.25
+SMALL = tuple(bsr_small.LAUNCHES)  # bsr_small_dsd, bsr_small_sdd
+# examples/sparse_finetune.py::block_rigl_demo at full width: ffn_w1, bs 32,
+# 75% of the blocks pruned, fp32 SGD at lr 0.5, one refresh (drop 0.2).
+RIGL_BS, RIGL_SPARSITY, RIGL_STEPS, RIGL_REFRESH, RIGL_DROP = 32, 0.75, 10, 5, 0.2
+# x ~ N(0, 4^2): lr times the loss's mean curvature, 2 * E[x^2] / rows,
+# is then ~0.03 per step, the demo's own (its batch of 64 against a width
+# of 512); at N(0, 1) and 2048 tokens it is ~0.002, too slow for the
+# blocks regrown at zero to recover the dropped ones' share within 4 steps.
+RIGL_X_SCALE = 4.0
+INT8_OPS = 1979e12  # H100 SXM data sheet, int8 dense
+Q8_SCALE = 0.0123  # an out_scale that is not a power of two
+
+
+def p12_counts() -> dict:
+    """Launches of phase 12's kernels and of bsr_dsd_stream on floats."""
+    return {**bsr_small.LAUNCHES, "bsr_bres": bsr_qstream.LAUNCHES, "bsr_dsd_stream_q8": bsr_dsd.LAUNCHES_Q8,
+            "bsr_dsd_stream": bsr_dsd.LAUNCHES}
+
+
+def p12_launches(**nonzero) -> dict:
+    return {**dict.fromkeys(p12_counts(), 0), **nonzero}
+
+
+def small_bsr(rng, rows, cols, bs, density, dtype, *, unordered=True, scale=1.0) -> BlockSparseMatrix:
+    m = testing.random_bsr(rng, rows, cols, int(rows * cols * density), bs, unordered=unordered, device=DEV)
+    return m.with_data(randn(rng, tuple(m.data.shape), dtype, scale))
+
+
+def int8_bsr(rng, d, density, *, unordered=True) -> BlockSparseMatrix:
+    m = testing.random_bsr(rng, d, d, int(d * d * density), 128, unordered=unordered, device=DEV)
+    return m.with_data(torch.from_numpy(rng.integers(-127, 128, tuple(m.data.shape), dtype=np.int8)).to(DEV))
+
+
+def int8_dense(rng, shape) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(DEV)
+
+
+def _p12_case(name, kname, kernel_fn, plain_fn, dtype, errors):
+    """A kernel twice (bitwise equal) against its plain version: int32
+    equal, fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp."""
+    got, again, want = kernel_fn(), kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{name}: two runs differ")
+    if dtype == torch.int32:
+        check(got.dtype == torch.int32 and torch.equal(got, want), f"{name}: int32 sums differ from the plain version")
+        err = 0.0
+    else:
+        err = _ulp_or_rel(name, got, want, dtype)
+    if dtype in (f32, torch.int32):
+        errors[kname] = max(errors.get(kname, 0.0), err)
+    return err
+
+
+def small_kernel_cases(rng, errors) -> None:
+    """(a): bsr_small_dsd and bsr_small_sdd against their plain versions on
+    the same plans at d = 4096, density 0.25 (SDD: K = 4096), bs 16 / 32 /
+    64, all four modes, bf16 and fp32; and a ragged case (unordered columns,
+    block-rows whose count is not a multiple of pack, an empty super-row)."""
+    d = SB_D
+    for bs in (16, 32, 64):
+        # One set of square operands per block size serves every mode and dtype.
+        a32 = small_bsr(rng, d, d, bs, SB_DENSITY, f32)
+        dense32 = [randn(rng, (d, d), f32) for _ in range(3)]
+        splan = bsr_small.plan_sdd_smallblock(a32)
+        for dtype in (f32, torch.bfloat16):
+            errs = []
+            a = a32.astype(dtype)
+            b, x, y = (t.to(dtype) for t in dense32)
+            for ta, tb in MODES:
+                kw = dict(transpose_a=ta, transpose_b=tb)
+                plan = bsr_small.plan_smallblock(a, transposed=ta)
+                errs.append(_p12_case(
+                    f"bsr_small_dsd bs {bs} {dtype} ta={ta:d} tb={tb:d}", "bsr_small_dsd",
+                    lambda: bsr_small.dsd_smallblock(a, b, schedule=plan, **kw),
+                    lambda: bsr_small.dsd_small_reference(plan, a.data, b, n_rows=d // bs, out_dtype=dtype, **kw),
+                    dtype, errors))
+                errs.append(_p12_case(
+                    f"bsr_small_sdd bs {bs} {dtype} ta={ta:d} tb={tb:d}", "bsr_small_sdd",
+                    lambda: bsr_small.sdd_smallblock(x, y, a, schedule=splan, **kw).data,
+                    lambda: bsr_small.sdd_small_reference(splan, x, y, out_dtype=dtype, **kw), dtype, errors))
+            print(f"  bs {bs} {str(dtype).split('.')[-1]:<8} d={d} 25%, 4 modes: max|kernel-plain| dsd "
+                  f"{max(errs[0::2]):.2e}, sdd {max(errs[1::2]):.2e}", flush=True)
+    # Ragged: bs 32 (pack 4), rows of 3, 5 and 1 blocks in unordered
+    # columns, super-row 1 (block-rows 4..7) empty.
+    rows = [0, 0, 0, 1, 1, 1, 1, 1, 2, 9, 9]
+    cols = [7, 2, 5, 0, 6, 1, 4, 3, 5, 2, 0]
+    for dtype in (f32, torch.bfloat16):
+        a = testing.bsr_from_blocks(512, 256, rows, cols, rng.standard_normal((len(rows), 32, 32)), dtype=dtype,
+                                    device=DEV)
+        b = randn(rng, (256, 384), dtype)
+        for ta in (False, True):
+            bb = b if not ta else randn(rng, (512, 384), dtype)
+            plan = bsr_small.plan_smallblock(a, transposed=ta)
+            n_rows = (a.cols if ta else a.rows) // 32
+            err = _p12_case(f"bsr_small_dsd ragged {dtype} ta={ta:d}", "bsr_small_dsd",
+                            lambda: bsr_small.dsd_smallblock(a, bb, transpose_a=ta, schedule=plan),
+                            lambda: bsr_small.dsd_small_reference(plan, a.data, bb, n_rows=n_rows, transpose_a=ta,
+                                                                  transpose_b=False, out_dtype=dtype), dtype, errors)
+            out = bsr_small.dsd_smallblock(a, bb, transpose_a=ta, schedule=plan)
+            torch.cuda.synchronize()
+            if not ta:
+                check(not bool(out[128:256].any()), "the empty super-row is not zero")
+        splan = bsr_small.plan_sdd_smallblock(a)
+        x, y = randn(rng, (512, 64), dtype), randn(rng, (64, 256), dtype)
+        err2 = _p12_case(f"bsr_small_sdd ragged {dtype}", "bsr_small_sdd",
+                         lambda: bsr_small.sdd_smallblock(x, y, a, schedule=splan).data,
+                         lambda: bsr_small.sdd_small_reference(splan, x, y, transpose_a=False, transpose_b=False,
+                                                               out_dtype=dtype), dtype, errors)
+        print(f"  ragged bs 32 {str(dtype).split('.')[-1]}: {plan.n_steps} steps, "
+              f"{int((plan.datas == a.nnz_blocks).sum())} padding slots, empty super-row zero; max|kernel-plain| "
+              f"dsd {err:.2e}, sdd {err2:.2e}", flush=True)
+
+
+def q8_kernel_cases(rng, errors) -> None:
+    """(a): bsr_dsd_stream on int8 operands, DSD and DDS in all four modes
+    (int32 sums equal, fp32 / bf16 outputs scaled), and bsr_bres in bf16,
+    fp32 and int8 at q 8 and 4 in all four modes, at d = 4096, density
+    0.25, against their plain versions."""
+    d = SB_D
+    errs = {"q8": 0.0, "bres": 0.0}
+    aq, bq, xq = int8_bsr(rng, d, SB_DENSITY), int8_dense(rng, (d, d)), int8_dense(rng, (d, d))
+    a32, b32 = rand_bsr(rng, d, d, SB_DENSITY, f32, unordered=True), randn(rng, (d, d), f32)
+    for ta, tb in MODES:
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        for od in (torch.int32, f32, torch.bfloat16):
+            sc = None if od == torch.int32 else Q8_SCALE
+            errs["q8"] = max(errs["q8"], _p12_case(
+                f"q8 dsd ta={ta:d} tb={tb:d} {od}", "bsr_dsd_stream_q8",
+                lambda: bsr_dsd.dsd(aq, bq, out_dtype=od, out_scale=sc, **kw),
+                lambda: bsr_dsd.dsd_reference(aq, bq, out_dtype=od, out_scale=sc, **kw), od, errors))
+            errs["q8"] = max(errs["q8"], _p12_case(
+                f"q8 dds ta={ta:d} tb={tb:d} {od}", "bsr_dsd_stream_q8",
+                lambda: bsr_dsd.dds(xq, aq, out_dtype=od, out_scale=sc, **kw),
+                lambda: bsr_dsd.dds_reference(xq, aq, out_dtype=od, out_scale=sc, **kw), od, errors))
+            for q in (8, 4):
+                plan = bsr_qstream.sparse_plan(aq, ta, q)
+                errs["bres"] = max(errs["bres"], _p12_case(
+                    f"bres int8 q{q} ta={ta:d} tb={tb:d} {od}", "bsr_bres",
+                    lambda: bsr_qstream.dsd_bres(aq, bq, out_dtype=od, out_scale=sc, q=q, **kw),
+                    lambda: bsr_qstream.bres_reference(plan, aq.data, bq, n_groups=d // 128, transpose_sparse=ta,
+                                                       transpose_dense=tb, out_dtype=od, out_scale=sc), od, errors))
+        for dtype in (f32, torch.bfloat16):
+            a, b = a32.astype(dtype), b32.to(dtype)
+            for q in (8, 4):
+                plan = bsr_qstream.sparse_plan(a, ta, q)
+                errs["bres"] = max(errs["bres"], _p12_case(
+                    f"bres {dtype} q{q} ta={ta:d} tb={tb:d}", "bsr_bres",
+                    lambda: bsr_qstream.dsd_bres(a, b, q=q, **kw),
+                    lambda: bsr_qstream.bres_reference(plan, a.data, b, n_groups=d // 128, transpose_sparse=ta,
+                                                       transpose_dense=tb, out_dtype=dtype), dtype, errors))
+        print(f"  ta={ta:d} tb={tb:d} d={d} 25%: q8 stream DSD / DDS int32 equal, scaled fp32 / bf16; bres int8 / "
+              f"fp32 / bf16 at q 8 and 4: max|kernel-plain| q8 {errs['q8']:.2e}, bres {errs['bres']:.2e}", flush=True)
+    # DDS through bres, and the plan built on the card for card-built metadata.
+    a = dss_bench.card_built(rand_bsr(rng, d, d, SB_DENSITY, f32, unordered=True), False)
+    x = randn(rng, (d, d), f32)
+    for ta, tb in ((False, False), (True, True)):
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        err = _p12_case(f"bres dds card-built ta={ta:d} tb={tb:d}", "bsr_bres",
+                        lambda: bsr_qstream.dds_bres(x, a, **kw), lambda: bsr_dsd.dds_reference(x, a, **kw), f32,
+                        errors)
+        print(f"  bres DDS on card-built metadata (plan built on the card) ta={ta:d} tb={tb:d}: "
+              f"max|kernel-plain| {err:.2e}", flush=True)
+
+
+def _p12_call(op, args):
+    return getattr(ops, f"matmul_{op}")(*args)
+
+
+def small_routes(rng) -> None:
+    """(b): at bs 32 and 64, host-known DSD / DDS / SDD / SSD / SDS / DSS
+    take cuda_smallblock with exact launches and match torch_reference
+    within one bf16 ulp; metadata built on the card takes jnp_fallback
+    (with SSS) and raises nothing; every host-known forward runs
+    again with warm plans under set_sync_debug_mode("error")."""
+    d, bf16 = SB_D // 2, torch.bfloat16
+    x = randn(rng, (d, d), bf16, d ** -0.5)
+    warm = []
+    for bs in (32, 64):
+        a, b, t = (small_bsr(rng, d, d, bs, SB_DENSITY, bf16) for _ in range(3))
+        one_dsd, one_sdd = p12_launches(bsr_small_dsd=1), p12_launches(bsr_small_sdd=1)
+        cases = [("dsd", (a, x), one_dsd), ("dds", (x, b), one_dsd), ("sdd", (x, x, t), one_sdd),
+                 ("ssd", (a, x, t), one_dsd), ("sds", (x, b, t), one_dsd), ("dss", (a, b), one_dsd)]
+        for op, args, want in cases:
+            name = registry.dispatch_name(op, *args)
+            check(name == "cuda_smallblock", f"bs {bs} host {op}: first fit is {name}")
+            torch.cuda.synchronize()
+            before = p12_counts()
+            out = _p12_call(op, args)
+            torch.cuda.synchronize()
+            delta = {k: v - before[k] for k, v in p12_counts().items()}
+            check(delta == want, f"bs {bs} {op}: launches {delta}, expected {want}")
+            with registry.forced_variant("torch_reference"):
+                plain = _p12_call(op, args)
+            out, plain = (o.data if isinstance(o, BlockSparseMatrix) else o for o in (out, plain))
+            ulps = testing.bf16_ulp_excess(out, plain)
+            check(ulps <= 1, f"bs {bs} {op}: {ulps:.2f} bf16 ulp from torch_reference")
+            warm.append((op, args))
+        card = [dss_bench.card_built(m, False) for m in (a, b, t)]
+        ac, bc, tc = card
+        for op, args in (("dsd", (ac, x)), ("dds", (x, bc)), ("sdd", (x, x, tc)), ("ssd", (ac, x, tc)),
+                         ("sds", (x, bc, tc)), ("dss", (ac, bc)), ("sss", (ac, bc, tc))):
+            name = registry.dispatch_name(op, *args)
+            check(name == ("dss_extract" if op == "sss" else "jnp_fallback"), f"bs {bs} card {op}: first fit {name}")
+            before = p12_counts()
+            out = _p12_call(op, args)
+            out = out.data if isinstance(out, BlockSparseMatrix) else out
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()), f"bs {bs} card {op}: non-finite output")
+            check(p12_counts() == before, f"bs {bs} card {op}: a kernel launched on the densify detour")
+        print(f"  bs {bs}: host-known dsd / dds / sdd / ssd / sds / dss on cuda_smallblock, one launch each, "
+              f"within one bf16 ulp of torch_reference; card-built: jnp_fallback (sss: dss_extract), no raise",
+              flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for op, args in warm:
+            _p12_call(op, args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  all {len(warm)} host-known forwards ran again with warm plans and no synchronizing call", flush=True)
+
+
+def rigl_finetune(name_limit: str) -> dict:
+    """(c): examples/sparse_finetune.py::block_rigl_demo at full width: the
+    whole trained ffn_w1 (512 x 2048 as (out, in)) pruned at bs 32 to 25%
+    of its blocks, x (in, 2048 tokens) ~ N(0, RIGL_X_SCALE^2), a dense teacher, 10 fp32 SGD steps
+    at lr 0.5 through ops.dsd with one RigL refresh (drop 0.2) after step
+    5. Returns the launches of the 10 steps."""
+    w = torch.from_numpy(dlmc_gen.load_weights(WEIGHTS)["ffn_w1"]).to(DEV)
+    rng = np.random.default_rng(22)
+    x = randn(rng, (w.shape[1], FT_TOKENS), f32, RIGL_X_SCALE)
+    teacher = w @ x
+    m = prune.block_magnitude_prune(w, RIGL_BS, sparsity=RIGL_SPARSITY)
+    budget = m.nnz_blocks
+    check(m.host_known and budget == int(round(0.25 * m.block_rows * m.block_cols)), "the prune's budget")
+
+    def step_loss(topo, leaf):
+        return torch.mean((ops.dsd(topo.with_data(leaf), x) - teacher) ** 2)
+
+    def grads(topo, data):
+        out = []
+        for plain in (False, True):
+            leaf = data.clone().requires_grad_()
+            with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+                step_loss(topo, leaf).backward()
+            out.append(leaf.grad)
+        torch.cuda.synchronize()
+        return float((out[0] - out[1]).abs().max()) / float(out[1].abs().max())
+
+    rel = grads(m, m.data)
+    print(f"  fp32 gradient of the blocks: max |kernels - plain| = {rel:.3e} * max|g|", flush=True)
+    check(rel <= 1e-4, f"fine-tune gradient differs by {rel:.3e} * max|g| > 1e-4")
+    data = m.data.clone()
+    losses, walls, total = [], [], dict.fromkeys(SMALL, 0)
+    one_each = p12_launches(bsr_small_dsd=1, bsr_small_sdd=1)
+    no_sync = RIGL_REFRESH + 2  # a step after the refresh, its plans warm
+    for step in range(RIGL_STEPS):
+        torch.cuda.synchronize()
+        reset_launches()
+        for op, args, kw in (("dsd", (m, x), {}), ("sdd", (teacher, x, m), dict(transpose_b=True))):
+            name = registry.dispatch_name(op, *args, **kw)
+            check(name == "cuda_smallblock", f"step {step}: {op} routes to {name}")
+        start = time.perf_counter()
+        leaf = data.clone().requires_grad_()
+        if step == no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = step_loss(m, leaf)
+            loss.backward()
+            with torch.no_grad():
+                data = leaf - FT_LR * leaf.grad
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        counts = p12_counts()
+        check(counts == one_each, f"step {step}: launches {counts}, expected {one_each}")
+        total = {k: total[k] + counts[k] for k in total}
+        losses.append(loss.item())
+        if step == RIGL_REFRESH:
+            wd = m.with_data(data).to_dense().requires_grad_()
+            torch.mean((wd @ x - teacher) ** 2).backward()
+            before = set(zip(m.row_indices.tolist(), m.indices.tolist()))
+            m = prune.rigl_block_update(m.with_data(data), wd.grad, drop_fraction=RIGL_DROP)
+            data = m.data.clone()
+            swapped = len(set(zip(m.row_indices.tolist(), m.indices.tolist())) - before)
+            check(m.nnz_blocks == budget and m.host_known, "the refresh changed the budget or lost the host copy")
+            check(swapped > 0, "the refresh swapped no block")
+    check(all(np.isfinite(losses)), f"fine-tune: non-finite loss in {losses}")
+    check(all(b < a for a, b in zip(losses[:RIGL_REFRESH + 1], losses[1:RIGL_REFRESH + 1])),
+          f"the loss did not fall over steps 0-{RIGL_REFRESH}: {losses}")
+    check(losses[-1] < losses[0], f"the last loss is not below the first: {losses}")
+    rel_after = grads(m, data)
+    check(rel_after <= 1e-4, f"gradient after the refresh differs by {rel_after:.3e} * max|g|")
+    print(f"  {budget} blocks of {RIGL_BS} kept; losses {[round(v, 6) for v in losses]}; refresh after step "
+          f"{RIGL_REFRESH} swapped {swapped} blocks, budget and host copy kept, gradient then within "
+          f"{rel_after:.3e} * max|g| of plain; launches per step {dict((k, v) for k, v in one_each.items() if v)}; "
+          f"step {no_sync} ran with no synchronizing call; wall per step {[round(v * 1e3, 2) for v in walls]} ms "
+          f"(informational) on {name_limit}", flush=True)
+    # bs 64: one forward and backward.
+    m64 = prune.block_magnitude_prune(w, 64, sparsity=RIGL_SPARSITY)
+    torch.cuda.synchronize()
+    reset_launches()
+    leaf = m64.data.clone().requires_grad_()
+    step_loss(m64, leaf).backward()
+    torch.cuda.synchronize()
+    check(p12_counts() == one_each, f"bs 64 step: launches {p12_counts()}")
+    rel64 = grads(m64, m64.data)
+    check(rel64 <= 1e-4, f"bs 64 gradient differs by {rel64:.3e} * max|g|")
+    print(f"  bs 64: one forward and backward, one launch of each kernel, gradient within {rel64:.3e} * max|g| "
+          "of plain", flush=True)
+    return total
+
+
+def int8_serving(name_limit: str) -> dict:
+    """(d): examples/quantized_serving.py's recipe on the trained ffn_w1
+    (d_model 512 x d_ff 2048): block-pruned at 128 to 25% of its blocks by
+    norm, 2048 tokens, int8 weights and activations through matmul_dds_q8
+    with both kernels, and the per-block-row path through matmul_dsd_q8 on
+    the transposed weight. Returns the launches."""
+    w1 = torch.from_numpy(dlmc_gen.load_weights(WEIGHTS)["ffn_w1"]).to(DEV)
+    rng = np.random.default_rng(23)
+    x = randn(rng, (FT_TOKENS, w1.shape[0]), f32)
+    pruned = prune.block_magnitude_prune(w1, 128, sparsity=0.75)
+    dense_out, pruned_out = x @ w1, x @ pruned.to_dense()
+
+    def rel(a, b):
+        return float(torch.linalg.norm((a.float() - b).flatten()) / torch.linalg.norm(b.flatten()))
+
+    w_q, sw = quant.quantize_bsr(pruned)
+    x_q, sx = quant.quantize(x)
+    wt_q, swt = quant.quantize_bsr(pruned.transpose(), per="block_row")
+    xt_q = x_q.T.contiguous()
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = {}
+    for kernel in ("stream", "bres"):
+        for od in (f32, torch.bfloat16):
+            outs[(kernel, od)] = quant.matmul_dds_q8(x_q, w_q, scale_a=sx, scale_b=sw, out_dtype=od, kernel=kernel)
+        outs[(kernel, "row")] = quant.matmul_dsd_q8(wt_q, xt_q, scale_a=swt, scale_b=sx, out_dtype=f32,
+                                                    kernel=kernel)
+    torch.cuda.synchronize()
+    counts = p12_counts()
+    check(counts == p12_launches(bsr_dsd_stream_q8=3, bsr_bres=3), f"int8 serving launches {counts}")
+    errs = {}
+    for (kernel, od), y in outs.items():
+        want = pruned_out.T if od == "row" else pruned_out
+        check(bool(torch.isfinite(y.float()).all()), f"{kernel} {od}: non-finite output")
+        errs[(kernel, od)] = rel(y, want)
+        check(errs[(kernel, od)] < 0.03, f"int8 {kernel} {od}: error {errs[(kernel, od)]:.4f} >= 0.03")
+    for kernel, fn in (("stream", bsr_dsd.dds), ("bres", bsr_qstream.dds_bres)):
+        raw = fn(x_q, w_q, out_dtype=torch.int32)
+        torch.cuda.synchronize()
+        check(torch.equal(raw, bsr_dsd.dds_reference(x_q, w_q, out_dtype=torch.int32)),
+              f"{kernel}: int32 sums differ from the plain version")
+    print(f"  {pruned.nnz_blocks}/{pruned.block_rows * pruned.block_cols} blocks kept; pruning error vs dense fp32 "
+          f"{rel(pruned_out, dense_out):.4f}; int8 error vs pruned fp32: "
+          + ", ".join(f"{k} {str(od).split('.')[-1]} {e:.4f}" for (k, od), e in errs.items())
+          + "; int32 sums of both kernels equal to plain", flush=True)
+    return counts
+
+
+def p12_kernel_times(rng, name_limit: str) -> dict:
+    """(e): the four kernels at d = 4096, density 0.25, NN: CUDA-graph
+    device time (10 warm-up + 100 timed) beside the plain version, the bound
+    and one PyTorch library call computing the same function where one
+    exists. The small-block kernels at bs 16 / 32 / 64 in bf16 (JSON rows:
+    bs 32, the fine-tune's); bres and the int8 stream on int8 operands
+    with a bf16 output (the serving path; bres also printed in bf16).
+    Returns {kernel: (ms, plain ms, library ms, bound ms, bound by)}."""
+    d, bf16 = SB_D, torch.bfloat16
+    results = {}
+
+    def row(kname, label, kern, plain, lib, nbytes, flops, rate, lib_note="refused, above"):
+        (ms, call) = time_ms(kern)
+        plain_ms, how = _library_time(plain)
+        lib_ms = library_call(kname, lib) if lib is not None else None
+        bound, by = bound_ms(nbytes, flops, rate)
+        lib_text = f"library {lib_ms * 1e3:.2f} us" if lib_ms is not None else f"library: none ({lib_note})"
+        print(f"  {kname:<18} {label}: kernel {ms * 1e3:.2f} us device ({flops / ms / 1e9:.1f} T(FL)OP/s) / "
+              f"{call * 1e3:.2f} us call, plain {plain_ms * 1e3:.2f} us ({how}), {lib_text}, bound "
+              f"{bound * 1e3:.2f} us ({by}; {bound / ms:.3f} of it) on {name_limit}", flush=True)
+        return ms, plain_ms, lib_ms, bound, by
+
+    for bs in (16, 32, 64):
+        a = small_bsr(rng, d, d, bs, SB_DENSITY, bf16, unordered=False)
+        b, x, y = (randn(rng, (d, d), bf16) for _ in range(3))
+        plan, splan = bsr_small.plan_smallblock(a), bsr_small.plan_sdd_smallblock(a)
+        nnz = a.nnz_blocks * bs * bs
+        # The yardsticks: A as a (bs, bs)-block BSR tensor times B, and
+        # sampled_addmm on the topology's element pattern as CSR.
+        bsr_t = torch.sparse_bsr_tensor(a.offsets, a.indices, a.data, (d, d))
+        try:
+            pattern = a.with_data(torch.ones_like(a.data)).to_dense().to_sparse_csr()
+        except RuntimeError as e:  # PyTorch has no bf16 CSR here: no yardstick
+            print(f"  bsr_small_sdd: no CSR pattern in bf16 ({str(e)[:120]})", flush=True)
+            pattern = None
+        kw = dict(transpose_a=False, transpose_b=False, out_dtype=bf16)
+        dsd_row = row("bsr_small_dsd", f"bs {bs} d={d} 25% NN bf16",
+                      lambda: bsr_small.dsd_smallblock(a, b, schedule=plan),
+                      lambda: bsr_small.dsd_small_reference(plan, a.data, b, n_rows=d // bs, **kw),
+                      lambda: torch.matmul(bsr_t, b), nnz * 2 + 2 * d * d * 2, 2 * nnz * d, BF16_FLOPS)
+        sdd_row = row("bsr_small_sdd", f"bs {bs} d={d} 25% K={d} NN bf16",
+                      lambda: bsr_small.sdd_smallblock(x, y, a, schedule=splan),
+                      lambda: bsr_small.sdd_small_reference(splan, x, y, **kw),
+                      None if pattern is None else lambda: torch.sparse.sampled_addmm(pattern, x, y, beta=0.0),
+                      2 * d * d * 2 + nnz * 2, 2 * nnz * d, BF16_FLOPS, "no CSR pattern in bf16")
+        if bs == RIGL_BS:
+            results["bsr_small_dsd"], results["bsr_small_sdd"] = dsd_row, sdd_row
+        del a, b, x, y, bsr_t, pattern
+    aq, bq = int8_bsr(rng, d, SB_DENSITY, unordered=False), int8_dense(rng, (d, d))
+    plan = bsr_qstream.sparse_plan(aq, False, 8)
+    dense_aq = aq.to_dense()
+    nnz = aq.nnz_blocks * 128 * 128
+    q8_bytes, q8_ops = nnz + d * d + d * d * 2, 2 * nnz * d
+    results["bsr_bres"] = row(
+        "bsr_bres", f"int8 q8 d={d} 25% NN, bf16 out", lambda: bsr_qstream.dsd_bres(aq, bq, out_dtype=bf16,
+                                                                                    out_scale=Q8_SCALE),
+        lambda: bsr_qstream.bres_reference(plan, aq.data, bq, n_groups=d // 128, transpose_sparse=False,
+                                           transpose_dense=False, out_dtype=bf16, out_scale=Q8_SCALE),
+        lambda: torch._int_mm(dense_aq, bq), q8_bytes, q8_ops, INT8_OPS)
+    results["bsr_dsd_stream_q8"] = row(
+        "bsr_dsd_stream_q8", f"int8 d={d} 25% NN, bf16 out",
+        lambda: bsr_dsd.dsd(aq, bq, out_dtype=bf16, out_scale=Q8_SCALE),
+        lambda: bsr_dsd.dsd_reference(aq, bq, out_dtype=bf16, out_scale=Q8_SCALE),
+        lambda: torch._int_mm(dense_aq, bq), q8_bytes, q8_ops, INT8_OPS)
+    a = rand_bsr(rng, d, d, SB_DENSITY, bf16)
+    b = randn(rng, (d, d), bf16)
+    bplan = bsr_qstream.sparse_plan(a, False, 8)
+    row("bsr_bres", f"bf16 q8 d={d} 25% NN (printed only)", lambda: bsr_qstream.dsd_bres(a, b),
+        lambda: bsr_qstream.bres_reference(bplan, a.data, b, n_groups=d // 128, transpose_sparse=False,
+                                           transpose_dense=False, out_dtype=bf16),
+        None, a.nnz_blocks * 128 * 128 * 2 + 2 * d * d * 2, 2 * a.nnz_blocks * 128 * 128 * d, BF16_FLOPS,
+        "see bsr_dsd_stream's torch.matmul on a BSR tensor")
+    return results
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1769,7 +2242,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     start = time.perf_counter()
     builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
-              bsr_ssd._kernel, bsr_dss._lib, bsm._lib)
+              bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
         for built in [pool.submit(f) for f in builds]:
             built.result()
@@ -2022,6 +2495,34 @@ def main() -> int:
     print("(e) kernel times (CUDA-graph device time, 10 warm-up + 100 timed; library calls are yardsticks the "
           "port never calls)", flush=True)
     times.update(attn_kernel_times(np.random.default_rng(18), name_limit, yard))
+    torch.cuda.empty_cache()
+
+    print(f"== phase 12: small-block (16 / 32 / 64) sparse training and int8 quantized serving, d = {SB_D}, "
+          f"density {SB_DENSITY}", flush=True)
+    print("(a) bsr_small_dsd / bsr_small_sdd, bsr_dsd_stream_q8 and bsr_bres against their plain versions",
+          flush=True)
+    small_kernel_cases(np.random.default_rng(19), errors)
+    torch.cuda.empty_cache()
+    q8_kernel_cases(np.random.default_rng(20), errors)
+    torch.cuda.empty_cache()
+    print("(b) first-fit routes at bs 32 / 64: host-known metadata on cuda_smallblock, card-built on jnp_fallback",
+          flush=True)
+    small_routes(np.random.default_rng(21))
+    torch.cuda.empty_cache()
+    print(f"(c) block-RigL fine-tune: ffn_w1 at bs {RIGL_BS}, sparsity {RIGL_SPARSITY}, {FT_TOKENS} tokens, "
+          f"{RIGL_STEPS} SGD steps at lr {FT_LR}, refresh after step {RIGL_REFRESH}", flush=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    main_launches.update(rigl_finetune(name_limit))
+    torch.cuda.empty_cache()
+    print(f"(d) int8 quantized serving (examples/quantized_serving.py's recipe) on ffn_w1, {FT_TOKENS} tokens",
+          flush=True)
+    q8_counts = int8_serving(name_limit)
+    main_launches.update({k: q8_counts[k] for k in ("bsr_bres", "bsr_dsd_stream_q8")})
+    torch.cuda.empty_cache()
+    print(f"(e) kernel times at d = {SB_D}, density {SB_DENSITY}, NN (CUDA-graph device time, 10 warm-up + 100 "
+          "timed; library calls are yardsticks the port never calls)", flush=True)
+    p12_times = p12_kernel_times(np.random.default_rng(24), name_limit)
 
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
@@ -2029,7 +2530,9 @@ def main() -> int:
     # chain of phase 9 for the SELL kernels, the routes and gradients of
     # phase 10 for the sparse-output kernels, the serving run of phase 3 for
     # the softmax kernels and the content-routed attention of phase 11 (b)
-    # for sdd_softmax.
+    # for sdd_softmax, the block-RigL fine-tune of phase 12 (c) for the
+    # small-block kernels and the int8 serving of phase 12 (d) for bsr_bres
+    # and bsr_dsd_stream_q8.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -2049,12 +2552,17 @@ def main() -> int:
         "bsr_softmax_stats": ("sputnik_tpu_torch/csrc/bsr_softmax.cu", "sputnik_tpu/kernels/bsr_softmax.py:56"),
         "bsr_softmax_normalize": ("sputnik_tpu_torch/csrc/bsr_softmax.cu", "sputnik_tpu/kernels/bsr_softmax.py:86"),
         "sdd_softmax": ("sputnik_tpu_torch/csrc/bsr_softmax.cu", "sputnik_tpu/kernels/flash_attention.py:262"),
+        "bsr_small_dsd": ("sputnik_tpu_torch/csrc/bsr_small.cu", "sputnik_tpu/kernels/bsr_small.py:217"),
+        "bsr_small_sdd": ("sputnik_tpu_torch/csrc/bsr_small.cu", "sputnik_tpu/kernels/bsr_small.py:348"),
+        "bsr_bres": ("sputnik_tpu_torch/csrc/bsr_bres.cu", "sputnik_tpu/kernels/bsr_qstream.py:696"),
+        "bsr_dsd_stream_q8": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:165"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
     measured = {k: (times[k][0][0], times[k][1][0], yard[k][2], yard[k][0], yard[k][1]) for k in times}
     measured.update(csr_times)
     measured.update(so_times)
+    measured.update(p12_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

@@ -22,7 +22,11 @@ more (``csrc/bsr_softmax.cu``: the BSR softmax's stats and normalize
 passes, which need no max_row_nnz hint, and the fused SDD + softmax's
 score pass) and on the flash kernels at one head
 (``flash_block_attention``): content-routed top-k attention, top-k and
-sampled serving, and the serving benchmark.
+sampled serving, and the serving benchmark; block sizes 16, 32 and 64 on
+two more (``csrc/bsr_small.cu``: packed DSD / DDS and SDD) with block
+pruning and RigL (``prune``); int8 quantized serving (``ops.quant``) on the
+stream kernel's int8 mode and one more (``csrc/bsr_bres.cu``, q blocks per
+step).
 Entry points build on the CUDA card unless given ``device="cpu"``. It
 imports torch and never jax.
 """

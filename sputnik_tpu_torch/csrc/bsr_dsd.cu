@@ -13,6 +13,11 @@
 // grid's z axis is a batch of matrices that share one topology (the heads
 // of an attention layer, vmapped in JAX).
 //
+// Operands are bf16, fp32 or int8 (the quantized serving path: int8
+// fragments, an exact int32 accumulator). The flush multiplies by
+// out_scale in fp32 (JAX's `acc.astype(f32) * out_scale`, the int8
+// dequantization) and writes bf16 or fp32, or the raw int32 sum.
+//
 // What bounds it on the H100: every step reads one 128x128 block and one
 // 128x128 slab of B (64 KB in bf16) for 4.2 MFLOP, ~64 FLOP/byte, under
 // the card's ~295 FLOP/byte ridge, so it is bound by memory and by how
@@ -36,7 +41,8 @@ struct DsdParams {
   int64_t ldb;
   int64_t c_row_stride, c_col_stride;
   int64_t a_batch_stride, b_batch_stride, c_batch_stride;  // in elements
-  int out_f32;
+  int out_kind;              // bsr::OUT_BF16 / OUT_F32 / OUT_I32
+  float out_scale;
 };
 
 template <typename T, bool TA, bool TB>
@@ -69,8 +75,8 @@ __global__ void __launch_bounds__(bsr::THREADS)
   const int64_t c_off = z * p.c_batch_stride +
                         int64_t(g) * bsr::BS * p.c_row_stride +
                         int64_t(n0) * p.c_col_stride;
-  char* c = static_cast<char*>(p.c) + c_off * (p.out_f32 ? 4 : 2);
-  tile.store(c, p.c_row_stride, p.c_col_stride, p.out_f32, scratch);
+  char* c = static_cast<char*>(p.c) + c_off * (p.out_kind == bsr::OUT_BF16 ? 2 : 4);
+  tile.store(c, p.c_row_stride, p.c_col_stride, p.out_kind, scratch, p.out_scale);
 }
 
 template <typename T>
@@ -89,6 +95,7 @@ void launch(const DsdParams& p, dim3 grid, cudaStream_t st, bool ta, bool tb) {
 
 // Output block-row g, column n of op(A) . op(B) lands at
 // c[g * 128 * c_row_stride + n * c_col_stride] (plus the batch offset).
+// in_kind: 0 bf16, 1 fp32, 2 int8; out_kind: 0 bf16, 1 fp32, 2 int32.
 // Returns cudaGetLastError() after the launch.
 extern "C" int bsr_dsd_stream(const void* a, const void* group_offsets,
                               const void* dep_ids, const void* data_ids,
@@ -96,8 +103,9 @@ extern "C" int bsr_dsd_stream(const void* a, const void* group_offsets,
                               int batch, long long ldb, long long c_row_stride,
                               long long c_col_stride, long long a_batch_stride,
                               long long b_batch_stride,
-                              long long c_batch_stride, int in_f32, int out_f32,
-                              int transpose_a, int transpose_b, void* stream) {
+                              long long c_batch_stride, int in_kind, int out_kind,
+                              float out_scale, int transpose_a, int transpose_b,
+                              void* stream) {
   DsdParams p{a,
               static_cast<const int*>(group_offsets),
               static_cast<const int*>(dep_ids),
@@ -110,11 +118,14 @@ extern "C" int bsr_dsd_stream(const void* a, const void* group_offsets,
               a_batch_stride,
               b_batch_stride,
               c_batch_stride,
-              out_f32};
+              out_kind,
+              out_scale};
   if (n_groups > 0 && n_cols > 0 && batch > 0) {
     dim3 grid(n_cols / bsr::BS, n_groups, batch);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (in_f32)
+    if (in_kind == 2)
+      launch<signed char>(p, grid, st, transpose_a, transpose_b);
+    else if (in_kind == 1)
       launch<float>(p, grid, st, transpose_a, transpose_b);
     else
       launch<__nv_bfloat16>(p, grid, st, transpose_a, transpose_b);

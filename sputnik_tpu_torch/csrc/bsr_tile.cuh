@@ -13,6 +13,15 @@
 // fp32: plain FMA, no TF32, so the sums are full fp32 products as in
 //       JAX's preferred_element_type=float32. Each of 256 threads owns an
 //       8x8 set of outputs strided by 16 so that stores coalesce.
+// int8: wmma 16x16x16 on signed char fragments with an int accumulator, so
+//       the int32 sum is exact (the JAX package's int8 path). A fragment
+//       pointer must be 32-byte aligned, and one 16-deep int8 step is only
+//       16 bytes, so int8 chunks are staged "tiled": the stored matrix's
+//       contiguous axis is cut into 16-element columns, each column a
+//       ROWS x 16 array of its own, and every fragment reads one of them
+//       with a row stride of 16 bytes.
+// The flush writes bf16, fp32 or (int8 operands) int32, after multiplying
+// by a scale (the int8 dequantization; 1 otherwise).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +36,9 @@ namespace bsr {
 constexpr int BS = 128;       // block size = output tile edge
 constexpr int THREADS = 256;  // 8 warps
 
+// Output element kinds of store_one.
+constexpr int OUT_BF16 = 0, OUT_F32 = 1, OUT_I32 = 2;
+
 template <typename T>
 struct Chunk;
 template <>
@@ -39,6 +51,11 @@ struct Chunk<float> {
   static constexpr int KC = 16;
   static constexpr int PAD = 4;
 };
+template <>
+struct Chunk<signed char> {
+  static constexpr int KC = 64;
+  static constexpr int PAD = 0;  // tiled layout, no row padding
+};
 
 // Shared-memory geometry of one staged chunk. A is op(A)[128 x KC],
 // B is op(B)[KC x 128]; each is kept in its stored orientation.
@@ -46,6 +63,7 @@ template <typename T, bool TA, bool TB>
 struct Smem {
   static constexpr int KC = Chunk<T>::KC;
   static constexpr int PAD = Chunk<T>::PAD;
+  static constexpr bool TILED = sizeof(T) == 1;
   static constexpr int A_ROWS = TA ? KC : BS;  // stored rows of the chunk
   static constexpr int A_COLS = TA ? BS : KC;
   static constexpr int B_ROWS = TB ? BS : KC;
@@ -57,9 +75,10 @@ struct Smem {
 };
 
 // Copy a ROWS x COLS tile, row stride ldg in global memory, into shared
-// memory with row stride lds. 16-byte vectors; the caller guarantees
-// 16-byte alignment of g, of ldg * sizeof(T) and of lds * sizeof(T).
-template <typename T, int ROWS, int COLS>
+// memory with row stride lds, or (TILED) as COLS / 16 arrays of ROWS x 16.
+// 16-byte vectors; the caller guarantees 16-byte alignment of g, of
+// ldg * sizeof(T) and of lds * sizeof(T).
+template <typename T, int ROWS, int COLS, bool TILED = false>
 __device__ __forceinline__ void copy_tile(T* __restrict__ s, int lds,
                                           const T* __restrict__ g,
                                           int64_t ldg) {
@@ -69,8 +88,8 @@ __device__ __forceinline__ void copy_tile(T* __restrict__ s, int lds,
   for (int v = threadIdx.x; v < TOTAL; v += THREADS) {
     const int r = v / VPR;
     const int c = (v % VPR) * V;
-    *reinterpret_cast<uint4*>(s + r * lds + c) =
-        *reinterpret_cast<const uint4*>(g + r * ldg + c);
+    T* dst = TILED ? s + (c / 16) * (ROWS * 16) + r * 16 + c % 16 : s + r * lds + c;
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(g + r * ldg + c);
   }
 }
 
@@ -82,18 +101,28 @@ __device__ __forceinline__ void stage(T* As, T* Bs, const T* a_tile,
                                       int64_t lda, const T* b_tile,
                                       int64_t ldb, int k0) {
   using S = Smem<T, TA, TB>;
-  copy_tile<T, S::A_ROWS, S::A_COLS>(As, S::LDA,
-                                     TA ? a_tile + k0 * lda : a_tile + k0, lda);
-  copy_tile<T, S::B_ROWS, S::B_COLS>(Bs, S::LDB,
-                                     TB ? b_tile + k0 : b_tile + k0 * ldb, ldb);
+  copy_tile<T, S::A_ROWS, S::A_COLS, S::TILED>(
+      As, S::LDA, TA ? a_tile + k0 * lda : a_tile + k0, lda);
+  copy_tile<T, S::B_ROWS, S::B_COLS, S::TILED>(
+      Bs, S::LDB, TB ? b_tile + k0 : b_tile + k0 * ldb, ldb);
 }
 
+// out_kind: OUT_BF16 or OUT_F32 (a bool out_f32 reads as one of the two).
 __device__ __forceinline__ void store_one(void* c, int64_t off, float v,
-                                          bool out_f32) {
-  if (out_f32)
+                                          int out_kind) {
+  if (out_kind == OUT_F32)
     static_cast<float*>(c)[off] = v;
   else
     static_cast<__nv_bfloat16*>(c)[off] = __float2bfloat16(v);
+}
+
+// An exact int32 sum: stored as is, or float(v) * scale in fp32, then cast.
+__device__ __forceinline__ void store_int(void* c, int64_t off, int v,
+                                          int out_kind, float scale) {
+  if (out_kind == OUT_I32)
+    static_cast<int*>(c)[off] = v;
+  else
+    store_one(c, off, static_cast<float>(v) * scale, out_kind);
 }
 
 template <typename T, bool TA, bool TB>
@@ -148,10 +177,10 @@ struct Tile<__nv_bfloat16, TA, TB> {
     }
   }
 
-  // Write the tile: element (r, c) of the tile goes to
+  // Write the tile times `scale`: element (r, c) of the tile goes to
   // c_tile[r * row_stride + c * col_stride].
   __device__ void store(void* c_tile, int64_t row_stride, int64_t col_stride,
-                        bool out_f32, float* scratch) {
+                        int out_kind, float* scratch, float scale = 1.0f) {
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int wm = (warp / 2) * 32;
@@ -168,7 +197,87 @@ struct Tile<__nv_bfloat16, TA, TB> {
         for (int e = lane; e < 256; e += 32) {
           const int r = wm + i * 16 + e / 16;
           const int c = wn + j * 16 + e % 16;
-          store_one(c_tile, r * row_stride + c * col_stride, ws[e], out_f32);
+          store_one(c_tile, r * row_stride + c * col_stride, ws[e] * scale,
+                    out_kind);
+        }
+        __syncwarp();
+      }
+  }
+};
+
+// ---------------------------------------------------------------- int8 ----
+template <bool TA, bool TB>
+struct Tile<signed char, TA, TB> {
+  using T = signed char;
+  using S = Smem<T, TA, TB>;
+  using LayoutA = typename std::conditional<TA, nvcuda::wmma::col_major,
+                                            nvcuda::wmma::row_major>::type;
+  using LayoutB = typename std::conditional<TB, nvcuda::wmma::col_major,
+                                            nvcuda::wmma::row_major>::type;
+  static constexpr int SCRATCH_FLOATS = (THREADS / 32) * 256;  // used as int
+
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, int> acc[2][4];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0);
+  }
+
+  // In the tiled layout the stored (r, c) sits at
+  // (c / 16) * (ROWS * 16) + r * 16 + c % 16; each fragment below is one
+  // 16-column array read with ldm 16.
+  __device__ void mma_chunk(const T* As, const T* Bs) {
+    const int warp = threadIdx.x / 32;
+    const int wm = (warp / 2) * 32;
+    const int wn = (warp % 2) * 64;
+#pragma unroll
+    for (int kk = 0; kk < S::KC; kk += 16) {
+      nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, T, LayoutA> fa[2];
+      nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, T, LayoutB> fb[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = wm + i * 16;  // stored (k, m) when TA, else (m, k)
+        const T* p = TA ? As + (m / 16) * (S::KC * 16) + kk * 16
+                        : As + (kk / 16) * (BS * 16) + m * 16;
+        nvcuda::wmma::load_matrix_sync(fa[i], p, 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn + j * 16;  // stored (n, k) when TB, else (k, n)
+        const T* p = TB ? Bs + (kk / 16) * (BS * 16) + n * 16
+                        : Bs + (n / 16) * (S::KC * 16) + kk * 16;
+        nvcuda::wmma::load_matrix_sync(fb[j], p, 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          nvcuda::wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+  }
+
+  __device__ void store(void* c_tile, int64_t row_stride, int64_t col_stride,
+                        int out_kind, float* scratch, float scale = 1.0f) {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int wm = (warp / 2) * 32;
+    const int wn = (warp % 2) * 64;
+    int* ws = reinterpret_cast<int*>(scratch) + warp * 256;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        nvcuda::wmma::store_matrix_sync(ws, acc[i][j], 16,
+                                        nvcuda::wmma::mem_row_major);
+        __syncwarp();
+#pragma unroll
+        for (int e = lane; e < 256; e += 32) {
+          const int r = wm + i * 16 + e / 16;
+          const int c = wn + j * 16 + e % 16;
+          store_int(c_tile, r * row_stride + c * col_stride, ws[e], out_kind,
+                    scale);
         }
         __syncwarp();
       }
@@ -215,7 +324,7 @@ struct Tile<float, TA, TB> {
   }
 
   __device__ void store(void* c_tile, int64_t row_stride, int64_t col_stride,
-                        bool out_f32, float*) {
+                        int out_kind, float*, float scale = 1.0f) {
     const int ty = threadIdx.x / 16;
     const int tx = threadIdx.x % 16;
 #pragma unroll
@@ -223,7 +332,7 @@ struct Tile<float, TA, TB> {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         store_one(c_tile, (ty + 16 * i) * row_stride + (tx + 16 * j) * col_stride,
-                  acc[i][j], out_f32);
+                  acc[i][j] * scale, out_kind);
   }
 };
 

@@ -45,6 +45,7 @@ import torch
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels import _build
+from sputnik_tpu_torch.kernels.common import cached_plan
 from sputnik_tpu_torch.ops import registry
 
 __all__ = [
@@ -303,8 +304,6 @@ def dedup_topology(topology: BlockSparseMatrix) -> BlockSparseMatrix:
     has no duplicate or its metadata was built on the card."""
     if not topology.host_known or topology.nnz_blocks == 0:
         return topology
-    from sputnik_tpu_torch.ops.matmul import cached_plan
-
     merged = cached_plan((topology.offsets, topology.indices), ("flash_dedup",),
                          lambda: _merge_duplicates(topology))
     return topology if merged is None else merged

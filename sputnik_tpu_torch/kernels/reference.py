@@ -5,24 +5,43 @@ They densify the sparse operands and run one fp32 ``torch.matmul``, then
 cast to the output type (a sparse output's blocks are then gathered out):
 the registry's ``torch_reference`` variants, the CPU path, and the densify
 detour for near-dense operands. Operands keep their layouts; a leading
-batch axis broadcasts.
+batch axis broadcasts. int8 operands give the exact int32 sum
+(:func:`product`), as the int8 kernels accumulate it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix, bsr_to_dense
+from sputnik_tpu_torch.kernels.common import oriented as _op
 
-__all__ = ["dsd", "dds", "sdd", "ssd", "sds", "dss", "sss", "extract_blocks"]
+__all__ = ["dsd", "dds", "sdd", "ssd", "sds", "dss", "sss", "extract_blocks", "product", "flush"]
 
 
-def _op(x: torch.Tensor, t: bool) -> torch.Tensor:
-    return x.transpose(-1, -2) if t else x
+def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as a kernel accumulates it: fp32, or for int8 operands the
+    exact int32 sum. CUDA has no integer matmul, so int8 goes through fp64
+    on the card (exact: a row of 1024 products of up to 127^2 sums to about
+    2^24, far below 2^53) and int64 on the CPU."""
+    if a.dtype == torch.int8:
+        wide = torch.float64 if a.is_cuda else torch.int64
+        return torch.matmul(a.to(wide), b.to(wide)).to(torch.int32)
+    return torch.matmul(a.float(), b.float())
+
+
+def flush(acc: torch.Tensor, out_dtype, out_scale=None) -> torch.Tensor:
+    """A kernel's flush: ``float(acc) * out_scale`` in fp32 (the scale
+    rounded to fp32 first, as the JAX package's weak-typed multiply does),
+    then the cast to ``out_dtype``."""
+    if out_scale is not None:
+        acc = acc.float() * torch.tensor(np.float32(out_scale), device=acc.device)
+    return acc.to(out_dtype)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
-    return torch.matmul(a.float(), b.float()).to(out_dtype)
+    return flush(product(a, b), out_dtype)
 
 
 def extract_blocks(dense: torch.Tensor, topology: BlockSparseMatrix) -> torch.Tensor:

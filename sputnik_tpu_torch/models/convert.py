@@ -6,7 +6,10 @@ params)``): nested dicts and lists with the JAX keys, which name the
 port's parameters one to one (``blocks[i]["moe"]["w1"]`` is
 ``blocks.<i>.moe.w1``). Layouts are the same, so nothing is transposed. ``grads_to_numpy`` is the
 inverse direction for gradients: keyed like ``flatten_tree`` of the JAX
-gradient tree. This module never imports jax.
+gradient tree. ``quantized_bsr_from_numpy`` carries int8 weights across:
+the JAX package's ``quantize_bsr`` result, as numpy, becomes the port's
+BSR and scale, so both packages serve the same int8 blocks. This module
+never imports jax.
 """
 
 from __future__ import annotations
@@ -17,9 +20,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.models.transformer import SparseLM, TransformerConfig
+from sputnik_tpu_torch.utils.device import resolve_device
 
-__all__ = ["flatten_tree", "load_numpy_", "params_from_numpy", "grads_to_numpy"]
+__all__ = ["flatten_tree", "load_numpy_", "params_from_numpy", "grads_to_numpy", "quantized_bsr_from_numpy"]
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -71,3 +76,20 @@ def grads_to_numpy(module: nn.Module) -> Dict[str, np.ndarray]:
         name: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu().numpy()
         for name, p in module.named_parameters()
     }
+
+
+def quantized_bsr_from_numpy(data, offsets, indices, shape, scale, *, device=None):
+    """The JAX package's quantized BSR as numpy (``(nnz, bs, bs)`` int8
+    blocks, ``offsets``, ``indices``, the matrix shape) and its scale (a
+    float per tensor, or the ``(block_rows,)`` per-block-row array) as the
+    port's ``(BlockSparseMatrix, scale)`` on ``device`` (``None``: the
+    card): int8 blocks, host-known metadata, and a float or an fp32
+    tensor."""
+    dev = resolve_device(device)
+    blocks = np.asarray(data)
+    if blocks.dtype != np.int8:
+        raise ValueError(f"quantized blocks must be int8, got {blocks.dtype}")
+    m = BlockSparseMatrix.create(torch.from_numpy(blocks).to(dev), offsets, indices, tuple(shape))
+    if np.ndim(scale) == 0:
+        return m, float(scale)
+    return m, torch.from_numpy(np.asarray(scale, np.float32)).to(dev)

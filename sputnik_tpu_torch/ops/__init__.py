@@ -9,7 +9,9 @@ the same options, ``variant=`` included. ``plan_*`` build the exact work
 lists (``FlatSchedule``) of the sparse-output ops on the host. ``flash_mha`` is
 registered with the variants ``cuda_flash`` and ``torch_reference``;
 ``bsr_softmax`` takes ``variant="pallas"`` (its two kernels) or ``"jnp"``
-(the torch chain); ``sdd_softmax`` is the fused SDD + softmax.
+(the torch chain); ``sdd_softmax`` is the fused SDD + softmax. ``quant``
+is the int8 serving path (``quantize``, ``quantize_bsr``,
+``matmul_dsd_q8``, ``matmul_dds_q8``).
 """
 
 from sputnik_tpu_torch.ops import registry
@@ -23,9 +25,10 @@ from sputnik_tpu_torch.ops.softmax import bsr_softmax, sdd_softmax
 # Imported after ``registry``: the kernel modules register themselves in it.
 from sputnik_tpu_torch.kernels.flash_mha import flash_mha  # noqa: E402  isort: skip
 from sputnik_tpu_torch.ops import csr  # noqa: E402  isort: skip
+from sputnik_tpu_torch.ops import quant  # noqa: E402  isort: skip
 
 __all__ = [
     "matmul", "matmul_dsd", "matmul_dds", "matmul_sdd", "matmul_ssd", "matmul_sds", "matmul_dss", "matmul_sss",
     "dsd", "dds", "sdd", "ssd", "sds", "dss", "sss", "FlatSchedule", "plan_ssd", "plan_sds", "plan_dss",
-    "plan_sss", "registry", "bsr_softmax", "sdd_softmax", "flash_mha", "csr",
+    "plan_sss", "registry", "bsr_softmax", "sdd_softmax", "flash_mha", "csr", "quant",
 ]

@@ -12,7 +12,11 @@ warm plans), and the rest of attention (the BSR softmax kernels on
 metadata built on the card with no hint, the fused SDD + softmax,
 flash_block_attention on both backward routes, the small LM at the default
 config's head dim 64 on both attention routes, content-routed top-k
-attention with no host read, and top-k / sampled serving).
+attention with no host read, and top-k / sampled serving), and the
+small-block and int8 kernels (bsr_small_dsd, bsr_small_sdd,
+bsr_dsd_stream on int8, bsr_bres: against their plain versions, the
+sparse-output ops at bs 32 on both kinds of metadata, a small-block
+training step, int8 serving against the CPU, and what they refuse).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -27,10 +31,11 @@ import numpy as np
 import pytest
 import torch
 
-from sputnik_tpu_torch import ops
+from sputnik_tpu_torch import ops, prune
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
 from sputnik_tpu_torch.bench import dss as dss_bench
-from sputnik_tpu_torch.kernels import bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_sdd, bsr_ssd, reference, sell
+from sputnik_tpu_torch.kernels import (bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd,
+                                       reference, sell)
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_attention as fa
 from sputnik_tpu_torch.kernels import flash_mha as fm
@@ -38,7 +43,7 @@ from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.models.convert import grads_to_numpy
 from sputnik_tpu_torch.ops import csr as csr_ops
-from sputnik_tpu_torch.ops import registry
+from sputnik_tpu_torch.ops import quant, registry
 from sputnik_tpu_torch.utils import testing
 from sputnik_tpu_torch.utils.testing import ATOL
 
@@ -730,3 +735,206 @@ def test_generate_topk_on_card_matches_cpu(cuda):
     draws = [tr.lm_generate_batched(gpu, tokens.to(cuda), cfg, 8, mode="topk", k_pages=2, temperature=0.8,
                                     generator=torch.Generator(device=cuda).manual_seed(5)) for _ in range(2)]
     assert torch.equal(*draws) and bool(((draws[0] >= 0) & (draws[0] < cfg.vocab)).all())
+
+
+# ------------------------------------------ small blocks and int8 serving --
+def _twice_close(kernel, plain, dtype):
+    """Two runs bitwise equal, then within tolerance of the plain version
+    (int32 sums equal)."""
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.int32:
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        _close(got, want.to(got.dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ta,tb", MODES)
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_small_kernels_match_plain(cuda, bs, ta, tb, dtype):
+    """bsr_small_dsd (DSD and, transposed, DDS) and bsr_small_sdd against
+    their plain versions on the same plans, unordered columns and ragged
+    rows; each launched once per call."""
+    rng = np.random.default_rng(40 + bs)
+    m, k, n = 512, 384, 256
+    kw = dict(transpose_a=ta, transpose_b=tb)
+    a = testing.random_bsr(rng, *_dims(m, k, n, ta, tb)[0], m * k // 4, bs, unordered=True, dtype=dtype,
+                           device=cuda)
+    b = _randn(rng, _dims(m, k, n, ta, tb)[1], cuda, dtype)
+    plan = bsr_small.plan_smallblock(a, transposed=ta)
+    before = dict(bsr_small.LAUNCHES)
+    _twice_close(lambda: bsr_small.dsd_smallblock(a, b, schedule=plan, **kw),
+                 lambda: bsr_small.dsd_small_reference(plan, a.data, b, n_rows=m // bs, out_dtype=dtype, **kw), dtype)
+    x = _randn(rng, _dims(n, m, k, tb, ta)[0], cuda, dtype)  # op(x): (n, m) against op(a): (m, k)
+    _twice_close(lambda: bsr_small.dds_smallblock(x, a, transpose_a=tb, transpose_b=ta),
+                 lambda: reference.dds(x, a, transpose_a=tb, transpose_b=ta), dtype)
+    topo = testing.random_bsr(rng, m, n, m * n // 4, bs, unordered=True, dtype=dtype, device=cuda)
+    y = _randn(rng, _dims(m, k, n, ta, tb)[0], cuda, dtype)
+    splan = bsr_small.plan_sdd_smallblock(topo)
+    _twice_close(lambda: bsr_small.sdd_smallblock(y, b, topo, schedule=splan, **kw).data,
+                 lambda: bsr_small.sdd_small_reference(splan, y, b, out_dtype=dtype, **kw), dtype)
+    assert {k: bsr_small.LAUNCHES[k] - before[k] for k in before} == {"bsr_small_dsd": 4, "bsr_small_sdd": 2}
+
+
+@pytest.mark.parametrize("ta,tb", MODES)
+def test_int8_stream_and_bres_match_plain(cuda, ta, tb):
+    """bsr_dsd_stream on int8 operands (DSD and DDS) and bsr_bres (int8,
+    bf16, fp32; q 8 and 4): int32 sums equal, scaled outputs within
+    tolerance, two runs bitwise equal; int8 launches counted apart."""
+    rng = np.random.default_rng(50)
+    m, k, n = 512, 384, 256
+    kw = dict(transpose_a=ta, transpose_b=tb)
+    a = testing.random_bsr(rng, *_dims(m, k, n, ta, tb)[0], m * k // 4, BS, unordered=True, device=cuda)
+    aq = a.with_data(torch.from_numpy(rng.integers(-127, 128, tuple(a.data.shape), dtype=np.int8)).to(cuda))
+    bq = torch.from_numpy(rng.integers(-127, 128, _dims(m, k, n, ta, tb)[1], dtype=np.int8)).to(cuda)
+    xq = torch.from_numpy(rng.integers(-127, 128, _dims(n, m, k, tb, ta)[0], dtype=np.int8)).to(cuda)
+    before = bsr_dsd.LAUNCHES, bsr_dsd.LAUNCHES_Q8, bsr_qstream.LAUNCHES
+    for od, sc in ((torch.int32, None), (torch.float32, 0.0123), (torch.bfloat16, 0.0123)):
+        _twice_close(lambda: bsr_dsd.dsd(aq, bq, out_dtype=od, out_scale=sc, **kw),
+                     lambda: bsr_dsd.dsd_reference(aq, bq, out_dtype=od, out_scale=sc, **kw), od)
+        _twice_close(lambda: bsr_dsd.dds(xq, aq, out_dtype=od, out_scale=sc, transpose_a=tb, transpose_b=ta),
+                     lambda: bsr_dsd.dds_reference(xq, aq, out_dtype=od, out_scale=sc, transpose_a=tb,
+                                                   transpose_b=ta), od)
+        for q in (8, 4):
+            _twice_close(lambda: bsr_qstream.dsd_bres(aq, bq, out_dtype=od, out_scale=sc, q=q, **kw),
+                         lambda: bsr_dsd.dsd_reference(aq, bq, out_dtype=od, out_scale=sc, **kw), od)
+    assert (bsr_dsd.LAUNCHES - before[0], bsr_dsd.LAUNCHES_Q8 - before[1]) == (0, 12)
+    for dtype in (torch.bfloat16, torch.float32):
+        af = a.astype(dtype)
+        b = _randn(rng, _dims(m, k, n, ta, tb)[1], cuda, dtype)
+        x = _randn(rng, _dims(n, m, k, tb, ta)[0], cuda, dtype)
+        _twice_close(lambda: bsr_qstream.dsd_bres(af, b, **kw), lambda: reference.dsd(af, b, **kw), dtype)
+        _twice_close(lambda: bsr_qstream.dds_bres(x, af, transpose_a=tb, transpose_b=ta),
+                     lambda: reference.dds(x, af, transpose_a=tb, transpose_b=ta), dtype)
+    assert bsr_qstream.LAUNCHES - before[2] == 2 * 3 * 2 + 2 * 2 * 2
+
+
+def test_bres_plan_on_card_built_metadata(cuda):
+    """Metadata built on the card: the bres plan is built there (no read
+    back) and the kernel matches plain, DSD and DDS."""
+    rng = np.random.default_rng(51)
+    a = testing.random_bsr(rng, 512, 512, 512 * 512 // 4, BS, unordered=True, device=cuda)
+    card = dss_bench.card_built(a, False)
+    assert not card.host_known
+    x = _randn(rng, (512, 256), cuda, torch.float32)
+    torch.cuda.synchronize()
+    bsr_qstream.dsd_bres(card, x)  # plans (on the card) and launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = bsr_qstream.dsd_bres(card, x)
+        out_t = bsr_qstream.dds_bres(x.T.contiguous(), card, transpose_b=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _close(out, reference.dsd(a, x), torch.float32)
+    _close(out_t, reference.dds(x.T.contiguous(), a, transpose_b=True), torch.float32)
+
+
+@pytest.mark.parametrize("op", ["ssd", "sds", "dss", "sss"])
+def test_sparse_out_small_blocks_on_card(cuda, op):
+    """SSD / SDS / DSS / SSS at bs 32 run on the card on
+    host-known metadata (cuda_smallblock) and on metadata built there
+    (jnp_fallback; SSS: dss_extract) and match the plain version."""
+    rng = np.random.default_rng(52)
+    d, bs, f32 = 512, 32, torch.float32
+    mats = [testing.random_bsr(rng, d, d, d * d // 4, bs, unordered=True, device=cuda) for _ in range(3)]
+    x = _randn(rng, (d, d), cuda, f32)
+    for card in (False, True):
+        a, b, t = (dss_bench.card_built(m, False) if card else m for m in mats)
+        args = {"ssd": (a, x, t), "sds": (x, b, t), "dss": (a, b), "sss": (a, b, t)}[op]
+        route = registry.dispatch_name(op, *args)
+        assert route == ({"sss": "dss_extract"}.get(op, "jnp_fallback") if card else
+                         {"sss": "dss_extract"}.get(op, "cuda_smallblock"))
+        out = getattr(ops, op)(*args)
+        with registry.forced_variant("torch_reference"):
+            plain = getattr(ops, op)(*args)
+        if op != "dss":
+            out, plain = out.data, plain.data
+        _close(out, plain, f32)
+
+
+def test_small_block_training_step_on_card(cuda):
+    """A pruned bs-32 weight: forward and backward through ops.dsd launch
+    one bsr_small_dsd and one bsr_small_sdd, the gradients match the plain
+    path, a RigL refresh keeps the budget and the host copy, and a warm
+    step reads nothing back."""
+    rng = np.random.default_rng(53)
+    w = _randn(rng, (256, 512), cuda, torch.float32)
+    x = _randn(rng, (512, 384), cuda, torch.float32)
+    m = prune.block_magnitude_prune(w, 32, sparsity=0.75)
+    assert m.host_known
+
+    def grad(topo, plain=False):
+        leaf = topo.data.clone().requires_grad_()
+        with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+            (ops.dsd(topo.with_data(leaf), x) ** 2).mean().backward()
+        return leaf.grad
+
+    before = dict(bsr_small.LAUNCHES)
+    g = grad(m)
+    assert {k: bsr_small.LAUNCHES[k] - before[k] for k in before} == {"bsr_small_dsd": 1, "bsr_small_sdd": 1}
+    _close(g, grad(m, plain=True), torch.float32)
+    r = prune.rigl_block_update(m, w, drop_fraction=0.3)
+    assert r.host_known and r.nnz_blocks == m.nnz_blocks
+    grad(r)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grad(r)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_quantized_serving_on_card_matches_cpu(cuda):
+    """quantize / quantize_bsr on the card equal the CPU's bit for bit, and
+    matmul_dds_q8 / matmul_dsd_q8 on the card (both kernels) equal the
+    CPU's plain versions: int32 exactly, fp32 within 1e-6 relative."""
+    rng = np.random.default_rng(54)
+    w = testing.random_bsr(rng, 512, 1024, 512 * 1024 // 4, BS, device="cpu")
+    x = torch.from_numpy(rng.standard_normal((256, 512)).astype(np.float32))
+    wq_c, sw_c = quant.quantize_bsr(w)
+    xq_c, sx_c = quant.quantize(x)
+    wq, sw = quant.quantize_bsr(w.to(cuda))
+    xq, sx = quant.quantize(x.to(cuda))
+    assert (sw, sx) == (sw_c, sx_c)
+    assert torch.equal(wq.data.cpu(), wq_c.data) and torch.equal(xq.cpu(), xq_c)
+    for kernel in ("stream", "bres"):
+        got = quant.matmul_dds_q8(xq, wq, scale_a=sx, scale_b=sw, out_dtype=torch.float32, kernel=kernel)
+        want = quant.matmul_dds_q8(xq_c, wq_c, scale_a=sx, scale_b=sw, out_dtype=torch.float32, kernel=kernel)
+        assert float((got.cpu() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+        wr, sr = quant.quantize_bsr(w.to(cuda), per="block_row")
+        wr_c, sr_c = quant.quantize_bsr(w, per="block_row")
+        assert torch.equal(sr.cpu(), sr_c) and torch.equal(wr.data.cpu(), wr_c.data)
+        bq_c, sb = quant.quantize(torch.from_numpy(rng.standard_normal((1024, 256)).astype(np.float32)))
+        got = quant.matmul_dsd_q8(wr, bq_c.to(cuda), scale_a=sr, scale_b=sb, out_dtype=torch.float32, kernel=kernel)
+        want = quant.matmul_dsd_q8(wr_c, bq_c, scale_a=sr_c, scale_b=sb, out_dtype=torch.float32, kernel=kernel)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_small_bres_wrappers_raise_on_cuda(cuda):
+    """What the new kernels do not take raises; it never falls back."""
+    rng = np.random.default_rng(55)
+    big = testing.random_bsr(rng, 256, 256, 256 * 256 // 2, BS, device=cuda)
+    small = testing.random_bsr(rng, 256, 256, 256 * 256 // 2, 32, device=cuda)
+    x = torch.zeros(256, 256, device=cuda)
+    with pytest.raises(ValueError, match="block size"):
+        bsr_small._dsd_launch(bsr_small.plan_smallblock(small), big, x, torch.empty(256, 256, device=cuda),
+                              transpose_sparse=False, transpose_dense=False, out_transposed=False)
+    with pytest.raises(ValueError, match="small-block plans"):
+        bsr_small.dsd_smallblock(big, x)
+    with pytest.raises(ValueError, match="one dtype"):
+        bsr_small.dsd_smallblock(small, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="aligned"):
+        bsr_small.sdd_smallblock(x[:, 1:129], torch.zeros(128, 256, device=cuda), small)
+    with pytest.raises(ValueError, match="K="):
+        bsr_small.sdd_smallblock(torch.zeros(256, 8, device=cuda), torch.zeros(8, 256, device=cuda), small)
+    with pytest.raises(ValueError, match="block size"):
+        bsr_qstream.dsd_bres(small, x)
+    with pytest.raises(ValueError, match="one dtype"):
+        bsr_qstream.dsd_bres(big, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="out_scale"):
+        bsr_dsd.dsd(big.with_data(big.data.to(torch.int8)), x.to(torch.int8), out_dtype=torch.int32, out_scale=2.0)
+    with pytest.raises(ValueError, match="int8"):
+        quant.matmul_dsd_q8(big, x, scale_a=1.0, scale_b=1.0)

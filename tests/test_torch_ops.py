@@ -139,9 +139,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
 
 
 def test_kernel_wrappers_on_cpu_give_plain_versions_and_refuse_unknown_options(rng):
-    """On CPU tensors dsd/dds/sdd compute their plain versions; an option the
-    kernel does not implement (the JAX int8 ``out_scale`` hook) raises
-    rather than being dropped."""
+    """On CPU tensors dsd/dds/sdd compute their plain versions; the stream
+    kernel's ``out_scale`` (the int8 dequantization, JAX's hook) scales the
+    flush there too, while the differentiable op, which no variant of it
+    scales, and an option no kernel implements raise rather than being
+    dropped."""
     _, ts = _sparse(8, 256, 256, 0.5, True)
     td = torch.from_numpy(rng.standard_normal((256, 256)).astype(np.float32))
     launches = bsr_dsd.LAUNCHES, bsr_sdd.LAUNCHES
@@ -152,8 +154,9 @@ def test_kernel_wrappers_on_cpu_give_plain_versions_and_refuse_unknown_options(r
         torch.testing.assert_close(bsr_sdd.sdd(td, td, ts, **kw).data,
                                    bsr_sdd.sdd_reference(td, td, ts, **kw).data, atol=0, rtol=0)
     assert (bsr_dsd.LAUNCHES, bsr_sdd.LAUNCHES) == launches
-    with pytest.raises(TypeError, match="out_scale"):
-        bsr_dsd.dsd(ts, td, out_scale=2.0)
+    torch.testing.assert_close(bsr_dsd.dsd(ts, td, out_scale=2.0), 2 * bsr_dsd.dsd(ts, td), atol=0, rtol=0)
+    with pytest.raises(TypeError, match="n_tile"):
+        bsr_dsd.dsd(ts, td, n_tile=256)
     with pytest.raises(TypeError, match="out_scale"):
         ops.dsd(ts, td, out_scale=2.0)
 
