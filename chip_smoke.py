@@ -6,8 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the eleven CUDA libraries from csrc/ (one nvcc each, all
-   started together) and print the seconds.
+   versions; build the thirteen CUDA libraries from csrc/ (one nvcc each,
+   all started together) and print the seconds.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
    attention shapes (T = 1024 and 2048, window 4, d_head 128, 8 heads), DSD at the
@@ -149,7 +149,27 @@ Phases (any failure raises and the script exits non-zero):
    equal to plain; (e) the four kernels' device times at d = 4096, 25%,
    NN, beside their plain versions, bounds and library yardsticks.
 
-The line before the last is {"kernels": [...]} (twenty-two kernels, each
+13. The benchmark entry points and the pipelined DSD / DDS kernel: (a) the
+   three mxu probes at m 1024, k = n 4096 (dense_stream at depths 128 / 512
+   / 4096 with and without accumulate, resident_stream at mt 128 and 512,
+   tiled_matmul at every tile of its sweep list) and bsr_dsd_pipelined (DSD
+   and DDS in all four modes at the 4096^2 / 25% headline, at the attention
+   shape T 1024 x 8 heads batched, on a BSR with empty block-rows and an
+   empty block-column with unordered indices, and on its metadata rebuilt
+   on the card), bf16 and fp32, against their plain versions: fp32 within
+   1e-4 * max|plain|, bf16 within one bf16 ulp, every kernel twice bitwise
+   equal; (b) variant="cuda_pipelined" and forced_variant launch it exactly
+   (the path whose launches the kernels line reports for it), and the first
+   fit still names and launches cuda_stream; (c) calibrate.measure(), every
+   efficiency in (0, 1.05]; (d) the mxu_probe rows (a cut of the depth
+   sweep) and the tile sweep; (e) the bench.dsd line on the first fit,
+   its fraction of the machine's speed of light against (c)'s peaks;
+   (c)-(e) are the benchmark path whose launches the kernels line reports
+   for the three probes; (f) the four kernels' device times beside their
+   plain versions, bounds and library yardsticks, and the pipelined and
+   stream kernels side by side, DSD and DDS at d = 1024 / 2048 / 4096, 25%.
+
+The line before the last is {"kernels": [...]} (twenty-six kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -159,8 +179,8 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
-import subprocess
 import sys
 import time
 
@@ -169,13 +189,17 @@ import torch
 import torch.nn.functional as F
 
 from sputnik_tpu_torch import ops, prune
+from sputnik_tpu_torch.bench import calibrate, mxu_probe
 from sputnik_tpu_torch.bench import dlmc as dlmc_bench
+from sputnik_tpu_torch.bench import dsd as dsd_bench
 from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.bench import moe as moe_bench
 from sputnik_tpu_torch.bench import serving as serving_bench
+from sputnik_tpu_torch.bench.models import PEAKS
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_dense
 from sputnik_tpu_torch.kernels import (_build, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small,
                                        bsr_ssd, sell)
+from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
@@ -183,7 +207,7 @@ from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.ops import csr as csr_ops
 from sputnik_tpu_torch.ops import quant, registry
 from sputnik_tpu_torch.utils import dlmc_gen, testing
-from sputnik_tpu_torch.utils.profiling import time_ms
+from sputnik_tpu_torch.utils.profiling import card, time_ms
 from sputnik_tpu_torch.utils.testing import ATOL
 
 MODES = [(False, False), (False, True), (True, False), (True, True)]
@@ -212,8 +236,8 @@ WEIGHTS = "data/dlmc_weights.npz"
 CSR_N = 64
 FT_TOKENS, FT_STEPS, FT_LR = 8 * dlmc_gen.SEQ, 5, 0.5
 CHAIN_H, CHAIN_T, CHAIN_DH, CHAIN_WINDOW = 8, 2048, 128, 4
-HBM_BPS = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS, BF16_FLOPS = 67e12, 989e12  # H100 SXM data sheet: fp32 without tensor cores, bf16 dense
+# H100 SXM data sheet (bench/models.py): HBM, fp32 without tensor cores, bf16 dense.
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = PEAKS["hbm_bps"], PEAKS["f32_flops"], PEAKS["bf16_flops"]
 f32 = torch.float32
 DEV = torch.device("cuda")
 
@@ -225,14 +249,6 @@ class PhaseError(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise PhaseError(what)
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def randn(rng, shape, dtype, scale=1.0):
@@ -454,6 +470,8 @@ def reset_launches() -> None:
     bsr_ffn.LAUNCHES.update(dict.fromkeys(FFN, 0))
     sell.LAUNCHES.update(dict.fromkeys(SELL, 0))
     bsm.LAUNCHES.update(dict.fromkeys(SOFTMAX, 0))
+    mxu_probe.LAUNCHES.update(dict.fromkeys(mxu_probe.LAUNCHES, 0))
+    bsr_pipe.LAUNCHES = 0
 
 
 def launch_counts() -> dict:
@@ -1800,7 +1818,7 @@ RIGL_BS, RIGL_SPARSITY, RIGL_STEPS, RIGL_REFRESH, RIGL_DROP = 32, 0.75, 10, 5, 0
 # of 512); at N(0, 1) and 2048 tokens it is ~0.002, too slow for the
 # blocks regrown at zero to recover the dropped ones' share within 4 steps.
 RIGL_X_SCALE = 4.0
-INT8_OPS = 1979e12  # H100 SXM data sheet, int8 dense
+INT8_OPS = PEAKS["int8_ops"]  # H100 SXM data sheet, int8 dense
 Q8_SCALE = 0.0123  # an out_scale that is not a power of two
 
 
@@ -2229,6 +2247,222 @@ def p12_kernel_times(rng, name_limit: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phase 13 --
+# The benchmark entry points (bench/dsd.py, bench/calibrate.py,
+# bench/mxu_probe.py) and the pipelined DSD / DDS kernel.
+PROBES = tuple(mxu_probe.LAUNCHES)  # mxu_dense_stream, mxu_resident_stream, mxu_tiled_matmul
+PIPE_DSD = functools.partial(bsr_dsd.dsd, launch=bsr_pipe.pipelined)
+PIPE_DDS = functools.partial(bsr_dsd.dds, launch=bsr_pipe.pipelined)
+# The JAX probe's default shape (m 1024, k = n 4096); phase 13 (a) and (d)
+# take a cut of its depth sweep (128 .. 4096).
+PROBE_M, PROBE_K, PROBE_DEPTHS = 1024, 4096, (128, 512, 4096)
+
+
+def probe_cases(rng, errors) -> None:
+    """(a): the three probes at m 1024, k = n 4096, bf16 and fp32, against
+    their plain versions and twice bitwise equal: dense_stream at depths
+    128 / 512 / 4096 with and without accumulate, resident_stream at mt 128
+    and 512, tiled_matmul at every tile of its sweep list."""
+    n_cases = 0
+    for dtype in (torch.bfloat16, f32):
+        a, b = randn(rng, (PROBE_M, PROBE_K), dtype), randn(rng, (PROBE_K, PROBE_K), dtype)
+        full = mxu_probe.product_reference(a, b)
+        for depth in PROBE_DEPTHS:
+            for acc in (True, False):
+                _p12_case(f"mxu_dense_stream depth {depth} accumulate={acc} {dtype}", "mxu_dense_stream",
+                          lambda: mxu_probe.dense_stream(a, b, depth=depth, accumulate=acc),
+                          lambda: full if acc else mxu_probe.dense_stream_reference(a, b, depth=depth,
+                                                                                    accumulate=False),
+                          dtype, errors)
+                n_cases += 1
+        for mt in (128, 512):
+            _p12_case(f"mxu_resident_stream mt {mt} {dtype}", "mxu_resident_stream",
+                      lambda: mxu_probe.resident_stream(a, b, depth=512, mt=mt), lambda: full, dtype, errors)
+            n_cases += 1
+        for bm, bk, bn in mxu_probe.SWEEP_CONFIGS:
+            _p12_case(f"mxu_tiled_matmul {(bm, bk, bn)} {dtype}", "mxu_tiled_matmul",
+                      lambda: mxu_probe.tiled_matmul(a, b, bm=bm, bk=bk, bn=bn), lambda: full, dtype, errors)
+            n_cases += 1
+        del a, b, full
+    print(f"  probes: {n_cases} cases within tolerance, each twice bitwise equal; max |kernel - plain| in fp32: "
+          f"{ {k: errors[k] for k in PROBES} }", flush=True)
+
+
+def pipelined_cases(rng, errors) -> None:
+    """(a): bsr_dsd_pipelined, DSD and DDS in all four modes, bf16 and fp32,
+    twice bitwise equal, against the plain versions: at the headline
+    (4096^2, 25%, N 4096, unordered indices), at the attention shape (T
+    1024, window 4, 8 heads batched, N = d_head 128), on a BSR with empty
+    block-rows and an empty block-column, unordered, and on that BSR's
+    metadata rebuilt on the card (no host copy)."""
+    n_cases = 0
+
+    def case(name, sparse, n_dense, ta, tb, dtype):
+        nonlocal n_cases
+        k_dsd = sparse.rows if ta else sparse.cols
+        x = randn(rng, sparse.batch_shape + ((n_dense, k_dsd) if tb else (k_dsd, n_dense)), dtype)
+        _p12_case(f"bsr_dsd_pipelined DSD {name} ta={ta} tb={tb} {dtype}", "bsr_dsd_pipelined",
+                  lambda: PIPE_DSD(sparse, x, transpose_a=ta, transpose_b=tb),
+                  lambda: bsr_dsd.dsd_reference(sparse, x, transpose_a=ta, transpose_b=tb), dtype, errors)
+        k_dds = sparse.cols if tb else sparse.rows
+        y = randn(rng, sparse.batch_shape + ((k_dds, n_dense) if ta else (n_dense, k_dds)), dtype)
+        _p12_case(f"bsr_dsd_pipelined DDS {name} ta={ta} tb={tb} {dtype}", "bsr_dsd_pipelined",
+                  lambda: PIPE_DDS(y, sparse, transpose_a=ta, transpose_b=tb),
+                  lambda: bsr_dsd.dds_reference(y, sparse, transpose_a=ta, transpose_b=tb), dtype, errors)
+        n_cases += 2
+
+    # Block-rows 1, 3 and 4 and block-column 2 empty; columns out of order.
+    rows, cols = (0, 0, 0, 2, 2, 5, 5, 5), (3, 0, 5, 1, 4, 0, 4, 1)
+    for dtype in (torch.bfloat16, f32):
+        head = rand_bsr(rng, 4096, 4096, 0.25, dtype, unordered=True)
+        att = band(1024, dtype, rng, SERVE.n_heads, 1.0)
+        ragged = testing.bsr_from_blocks(768, 768, rows, cols, np.zeros((len(rows), 128, 128), np.float32),
+                                         dtype=dtype, device=DEV)
+        ragged = ragged.with_data(randn(rng, tuple(ragged.data.shape), dtype))
+        for ta, tb in MODES:
+            case("4096^2 25%", head, 4096, ta, tb, dtype)
+            case(f"T 1024 x {SERVE.n_heads} heads", att, SERVE.d_head, ta, tb, dtype)
+            case("ragged", ragged, 256, ta, tb, dtype)
+            case("ragged, card-built metadata", dss_bench.card_built(ragged, False), 256, ta, tb, dtype)
+        del head, att
+    print(f"  bsr_dsd_pipelined: {n_cases} cases within tolerance, each twice bitwise equal; max |kernel - plain| "
+          f"in fp32 {errors['bsr_dsd_pipelined']:.3e}", flush=True)
+
+
+def pipelined_routes(rng) -> int:
+    """(b): variant="cuda_pipelined" and forced_variant("cuda_pipelined")
+    launch the kernel, exactly once per product; the first fit still names
+    cuda_stream and launches it. Returns the launches of bsr_dsd_pipelined
+    on the two routes."""
+    a = rand_bsr(rng, 2048, 2048, 0.25, torch.bfloat16)
+    b = randn(rng, (2048, 2048), torch.bfloat16)
+    for op, args in (("dsd", (a, b)), ("dds", (b, a))):
+        name = registry.dispatch_name(op, *args)
+        check(name == "cuda_stream", f"{op} first fit is {name}, not cuda_stream")
+    torch.cuda.synchronize()
+    reset_launches()
+    ops.matmul_dsd(a, b, variant="cuda_pipelined")
+    ops.matmul_dds(b, a, variant="cuda_pipelined")
+    with registry.forced_variant("cuda_pipelined"):
+        ops.matmul_dsd(a, b)
+        ops.matmul_dds(b, a)
+    torch.cuda.synchronize()
+    routed = bsr_pipe.LAUNCHES
+    check(routed == 4 and bsr_dsd.LAUNCHES == 0,
+          f"variant= / forced_variant launched bsr_dsd_pipelined {routed} and bsr_dsd_stream "
+          f"{bsr_dsd.LAUNCHES} times, expected 4 and 0")
+    ops.matmul_dsd(a, b)
+    ops.matmul_dds(b, a)
+    torch.cuda.synchronize()
+    check(bsr_pipe.LAUNCHES == 4 and bsr_dsd.LAUNCHES == 2, "the first fit did not launch bsr_dsd_stream alone")
+    print("  variant= and forced_variant: 4 launches of bsr_dsd_pipelined; first fit: cuda_stream, 2 launches",
+          flush=True)
+    return routed
+
+
+def calibration(name_limit: str) -> dict:
+    """(c): calibrate.measure(); every efficiency in (0, 1.05]."""
+    peaks = calibrate.measure()
+    for key in ("mxu_efficiency", "f32_efficiency", "hbm_efficiency"):
+        check(0 < peaks[key] <= 1.05, f"calibration: {key} = {peaks[key]} outside (0, 1.05]")
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v) for k, v in peaks.items()
+                      if not isinstance(v, dict)}), flush=True)
+    print(f"  dense bf16 {peaks['dense_bf16_tflops']:.1f} TFLOP/s ({peaks['mxu_efficiency']:.3f} of 989), fp32 "
+          f"{peaks['dense_f32_tflops']:.1f} ({peaks['f32_efficiency']:.3f} of 67), stream {peaks['hbm_gbps']:.0f} "
+          f"GB/s ({peaks['hbm_efficiency']:.3f} of 3350) on {name_limit}", flush=True)
+    return peaks
+
+
+def probe_rows() -> None:
+    """(d): the bench.mxu_probe rows, a cut of the depth and m-tile sweeps,
+    and the whole tile sweep; every fraction of the peak at most 1.05."""
+    rows = mxu_probe.run(PROBE_M, PROBE_K, PROBE_K, depths=PROBE_DEPTHS, mt_depths=(4096,), mts=(512,),
+                         overwrite_depths=(128,))
+    rows += mxu_probe.run_dense_sweep(PROBE_M, PROBE_K, PROBE_K)
+    for r in rows:
+        check(0 < r["frac_peak"] <= 1.05, f"mxu_probe row {r} above the peak")
+        print(json.dumps({k: (round(v, 3) if isinstance(v, float) else v) for k, v in r.items()}), flush=True)
+
+
+def headline(name_limit: str, peaks: dict) -> None:
+    """(e): python -m sputnik_tpu_torch.bench.dsd's line on the first fit
+    (cuda_stream), its machine fraction against (c)'s peaks."""
+    r = dsd_bench.bench_dsd(4096, 0.25, peaks=peaks)
+    check(r["variant"] == "cuda_stream", f"the headline ran {r['variant']}, not the first fit cuda_stream")
+    check("frac_machine_sol" in r and 0 < r["frac_machine_sol"] <= 1.05,
+          f"headline machine fraction {r.get('frac_machine_sol')} outside (0, 1.05]")
+    print(f"  {r['variant']} {r['time_s'] * 1e6:.2f} us: {r['gflops']:.0f} GFLOP/s, {r['frac_sol']:.4f} of the "
+          f"data-sheet SoL, {r['frac_machine_sol']:.4f} of the measured one on {name_limit}", flush=True)
+    print(json.dumps(dsd_bench.headline_line(r)), flush=True)
+
+
+def p13_kernel_times(rng, name_limit: str) -> dict:
+    """(f): the four kernels' device times (CUDA graph, 10 warm-up + 100
+    timed) beside their plain versions, bounds and library yardsticks. The
+    probes at m 1024, k = n 4096, bf16, on the CTA tile they share (128 x
+    128, depth 128 for the stream probes, tiled 128 x 32 x 128; the library
+    call torch.matmul); bsr_dsd_pipelined at phase 5's attention shape (T
+    1024, 8 heads; the library call torch.matmul on a BSR tensor, as for
+    bsr_dsd_stream), and beside the stream kernel, DSD and DDS at d = 1024
+    / 2048 / 4096, 25%. Returns {kernel: (ms, plain ms, library ms, bound
+    ms, bound by)}."""
+    bf16 = torch.bfloat16
+    results = {}
+
+    def row(kname, label, kern, plain, lib_ms, nbytes, flops):
+        (ms, call) = time_ms(kern)
+        plain_ms, how = _library_time(plain)
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        lib_text = f"library {lib_ms * 1e3:.2f} us" if lib_ms is not None else "library: none"
+        print(f"  {kname:<19} {label}: kernel {ms * 1e3:.2f} us device ({flops / ms / 1e9:.1f} TFLOP/s) / "
+              f"{call * 1e3:.2f} us call, plain {plain_ms * 1e3:.2f} us ({how}), {lib_text}, bound "
+              f"{bound * 1e3:.2f} us ({by}; {bound / ms:.3f} of it) on {name_limit}", flush=True)
+        return ms, plain_ms, lib_ms, bound, by
+
+    a, b = randn(rng, (PROBE_M, PROBE_K), bf16), randn(rng, (PROBE_K, PROBE_K), bf16)
+    flops = 2 * PROBE_M * PROBE_K * PROBE_K
+    nbytes = (PROBE_M * PROBE_K + PROBE_K * PROBE_K + PROBE_M * PROBE_K) * 2
+    lib = library_call("torch.matmul", lambda: torch.matmul(a, b))
+    plain = lambda: mxu_probe.product_reference(a, b)  # noqa: E731
+    shape = f"m {PROBE_M} k = n {PROBE_K} bf16"
+    results["mxu_dense_stream"] = row("mxu_dense_stream", f"{shape} depth 128",
+                                      lambda: mxu_probe.dense_stream(a, b, depth=128), plain, lib, nbytes, flops)
+    results["mxu_resident_stream"] = row("mxu_resident_stream", f"{shape} depth 128 mt 128",
+                                         lambda: mxu_probe.resident_stream(a, b, depth=128), plain, lib, nbytes,
+                                         flops)
+    results["mxu_tiled_matmul"] = row("mxu_tiled_matmul", f"{shape} tile (128, 32, 128)",
+                                      lambda: mxu_probe.tiled_matmul(a, b, bm=128, bk=32, bn=128), plain, lib,
+                                      nbytes, flops)
+    del a, b
+    h, dh = SERVE.n_heads, SERVE.d_head
+    topo = attention.causal_block_topology(PROMPT, window_blocks=SERVE.window_blocks, dtype=bf16, device=DEV)
+    q, k, v = (randn(rng, (h, PROMPT, dh), bf16) for _ in range(3))
+    probs = topo.with_data(randn(rng, (h,) + tuple(topo.data.shape), bf16))
+    bound, by, lib = attention_yardsticks(topo, q, k, v, probs)["bsr_dsd_stream"]
+    blk = h * topo.nnz_blocks * 128 * 128
+    results["bsr_dsd_pipelined"] = row(
+        "bsr_dsd_pipelined", f"T={PROMPT} {topo.nnz_blocks} blocks x {h} heads", lambda: PIPE_DSD(probs, v),
+        lambda: bsr_dsd.dsd_reference(probs, v), lib, blk * 2 + 2 * h * PROMPT * dh * 2, 2 * blk * dh)
+    check(abs(results["bsr_dsd_pipelined"][3] - bound) < 1e-9 and results["bsr_dsd_pipelined"][4] == by,
+          "the pipelined and stream kernels' bounds differ at one shape")
+    stream_ms, _ = time_ms(lambda: bsr_dsd.dsd(probs, v))
+    print(f"  bsr_dsd_stream at the same shape: {stream_ms * 1e3:.2f} us device", flush=True)
+    # The measurement that bears on which of the two takes the first fit:
+    # DSD and DDS, NN, 25%, N = d, at three sizes up to the headline.
+    for d in (1024, 2048, 4096):
+        a = rand_bsr(rng, d, d, 0.25, bf16)
+        b = randn(rng, (d, d), bf16)
+        hflops = 2 * a.nnz_blocks * 128 * 128 * d
+        for op, pipe, stream in (("DSD", lambda: PIPE_DSD(a, b), lambda: bsr_dsd.dsd(a, b)),
+                                 ("DDS", lambda: PIPE_DDS(b, a), lambda: bsr_dsd.dds(b, a))):
+            (pipe_ms, _), (stream_ms, _) = time_ms(pipe), time_ms(stream)
+            print(f"  {op} {d}^2 25% N {d} bf16: bsr_dsd_pipelined {pipe_ms * 1e3:.2f} us "
+                  f"({hflops / pipe_ms / 1e9:.1f} TFLOP/s), bsr_dsd_stream {stream_ms * 1e3:.2f} us "
+                  f"({hflops / stream_ms / 1e9:.1f} TFLOP/s), ratio {stream_ms / pipe_ms:.3f}", flush=True)
+        del a, b
+    return results
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2242,7 +2476,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     start = time.perf_counter()
     builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
-              bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel)
+              bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel, bsr_pipe._kernel,
+              mxu_probe._lib)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
         for built in [pool.submit(f) for f in builds]:
             built.result()
@@ -2523,6 +2758,35 @@ def main() -> int:
     print(f"(e) kernel times at d = {SB_D}, density {SB_DENSITY}, NN (CUDA-graph device time, 10 warm-up + 100 "
           "timed; library calls are yardsticks the port never calls)", flush=True)
     p12_times = p12_kernel_times(np.random.default_rng(24), name_limit)
+    torch.cuda.empty_cache()
+
+    print("== phase 13: the benchmark entry points (bench.dsd, calibrate, mxu_probe) and the pipelined DSD / DDS "
+          "kernel", flush=True)
+    print(f"(a) the three probes (m {PROBE_M}, k = n {PROBE_K}) and bsr_dsd_pipelined against their plain versions",
+          flush=True)
+    probe_cases(np.random.default_rng(25), errors)
+    pipelined_cases(np.random.default_rng(26), errors)
+    torch.cuda.empty_cache()
+    print("(b) routes: variant= and forced_variant take cuda_pipelined; first fit keeps cuda_stream", flush=True)
+    main_launches["bsr_dsd_pipelined"] = pipelined_routes(np.random.default_rng(27))
+    # The benchmark path, (c)-(e), as a user runs it: the counts are zero
+    # before it and read after it.
+    torch.cuda.synchronize()
+    reset_launches()
+    print(f"(c) python -m sputnik_tpu_torch.bench.calibrate (measure only) on {name_limit}", flush=True)
+    peaks = calibration(name_limit)
+    print("(d) python -m sputnik_tpu_torch.bench.mxu_probe rows (depths 128 / 512 / 4096, mt 512, overwrite at "
+          "128) and --dense-sweep", flush=True)
+    probe_rows()
+    print(f"(e) python -m sputnik_tpu_torch.bench.dsd (4096^2, 25%, bf16, first fit) on {name_limit}", flush=True)
+    headline(name_limit, peaks)
+    torch.cuda.synchronize()
+    main_launches.update(mxu_probe.LAUNCHES)
+    print(f"  launches on the benchmark path: {dict(mxu_probe.LAUNCHES)}", flush=True)
+    torch.cuda.empty_cache()
+    print("(f) kernel times (CUDA-graph device time, 10 warm-up + 100 timed; library calls are yardsticks the "
+          "port never calls)", flush=True)
+    p13_times = p13_kernel_times(np.random.default_rng(28), name_limit)
 
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
@@ -2532,7 +2796,10 @@ def main() -> int:
     # the softmax kernels and the content-routed attention of phase 11 (b)
     # for sdd_softmax, the block-RigL fine-tune of phase 12 (c) for the
     # small-block kernels and the int8 serving of phase 12 (d) for bsr_bres
-    # and bsr_dsd_stream_q8.
+    # and bsr_dsd_stream_q8, the benchmark path of phase 13 (c)-(e) for the
+    # probes, and the variant= / forced_variant routes of phase 13 (b) for
+    # bsr_dsd_pipelined (no serving or training path reaches it: the first
+    # fit keeps cuda_stream).
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -2556,6 +2823,11 @@ def main() -> int:
         "bsr_small_sdd": ("sputnik_tpu_torch/csrc/bsr_small.cu", "sputnik_tpu/kernels/bsr_small.py:348"),
         "bsr_bres": ("sputnik_tpu_torch/csrc/bsr_bres.cu", "sputnik_tpu/kernels/bsr_qstream.py:696"),
         "bsr_dsd_stream_q8": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:165"),
+        "mxu_dense_stream": ("sputnik_tpu_torch/csrc/mxu_probe.cu", "sputnik_tpu/bench/mxu_probe.py:43"),
+        "mxu_resident_stream": ("sputnik_tpu_torch/csrc/mxu_probe.cu", "sputnik_tpu/bench/mxu_probe.py:104"),
+        "mxu_tiled_matmul": ("sputnik_tpu_torch/csrc/mxu_probe.cu", "sputnik_tpu/bench/mxu_probe.py:157"),
+        "bsr_dsd_pipelined": ("sputnik_tpu_torch/csrc/bsr_dsd_pipelined.cu",
+                              "sputnik_tpu/kernels/bsr_dsd_pipelined.py:39"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
@@ -2563,6 +2835,7 @@ def main() -> int:
     measured.update(csr_times)
     measured.update(so_times)
     measured.update(p12_times)
+    measured.update(p13_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

@@ -15,13 +15,17 @@ Launches on int8 operands count apart, in ``LAUNCHES_Q8``.
 
 On CPU tensors :func:`dsd` and :func:`dds` compute the plain PyTorch version
 (:func:`dsd_reference`, :func:`dds_reference`); on CUDA tensors they launch
-the kernel, or raise for a problem the kernel does not take.
+the kernel, or raise for a problem the kernel does not take. ``launch``
+picks the kernel: :func:`stream` by default, or a launcher of the same
+signature (``bsr_dsd_pipelined.pipelined``, the registry's
+``cuda_pipelined``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
 
@@ -29,7 +33,7 @@ from sputnik_tpu_torch.formats import BlockSparseMatrix, bsr_to_dense
 from sputnik_tpu_torch.kernels import _build, reference
 from sputnik_tpu_torch.kernels.common import oriented as _op
 
-__all__ = ["dsd", "dds", "stream", "dsd_reference", "dds_reference", "LAUNCHES", "LAUNCHES_Q8"]
+__all__ = ["dsd", "dds", "stream", "launch_args", "dsd_reference", "dds_reference", "LAUNCHES", "LAUNCHES_Q8"]
 
 # Kernel launches in this process; each launch of bsr_dsd_stream on bf16 or
 # fp32 operands adds one to LAUNCHES, on int8 operands to LAUNCHES_Q8.
@@ -96,11 +100,86 @@ def _split_batch(x: torch.Tensor, ndim: int):
     raise ValueError(f"expected {ndim} or {ndim + 1} dims, got shape {tuple(x.shape)}")
 
 
-def _check_aligned(name: str, x: torch.Tensor) -> None:
-    if not x.is_contiguous():
-        raise ValueError(f"bsr_dsd_stream: {name} must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError(f"bsr_dsd_stream: {name} must be 16-byte aligned")
+def launch_args(
+    kernel: str,
+    sparse: BlockSparseMatrix,
+    dense: torch.Tensor,
+    out: torch.Tensor,
+    *,
+    transpose_sparse: bool,
+    transpose_dense: bool,
+    out_transposed: bool,
+    check_dtypes_fn,
+) -> tuple:
+    """Check a DSD / DDS problem for a 128-block kernel that owns one output
+    tile per CTA (``bsr_dsd_stream``, ``bsr_dsd_pipelined``) and return the
+    launch arguments both take, in their C order: the sparse data, the
+    group offsets, dep ids and data ids (None: identity), the dense operand
+    and out pointers, n_groups, N, batch, ldb, the out row / column strides
+    and the three batch strides.
+
+    ``out`` is ``([batch,] M, N)``, or ``([batch,] N, M)`` with
+    ``out_transposed`` (the DDS route). ``check_dtypes_fn(operand dtype,
+    other operand dtype, out dtype)`` raises for the dtypes ``kernel`` does
+    not take. Raises ``ValueError`` for the rest the kernels do not take:
+    CPU tensors, block sizes other than 128, N not a multiple of 128,
+    non-contiguous or misaligned data.
+    """
+    data = sparse.data
+    for name, t in (("sparse data", data), ("dense", dense), ("out", out)):
+        if not t.is_cuda:
+            raise ValueError(f"{kernel} needs CUDA tensors; {name} is on {t.device}")
+    if dense.device != data.device or out.device != data.device:
+        raise ValueError(f"{kernel}: operands are on different devices")
+    check_dtypes_fn(data.dtype, dense.dtype, out.dtype)
+    bs = sparse.block_size
+    if bs != 128:
+        raise ValueError(f"{kernel}: block size must be 128, got {bs}")
+    m_dim = sparse.cols if transpose_sparse else sparse.rows
+    k_dim = sparse.rows if transpose_sparse else sparse.cols
+    n_dim = dense.shape[-2] if transpose_dense else dense.shape[-1]
+    dk = dense.shape[-1] if transpose_dense else dense.shape[-2]
+    if dk != k_dim:
+        raise ValueError(f"{kernel}: contraction mismatch, sparse gives k={k_dim}, dense {dk}")
+    if n_dim % 128:
+        raise ValueError(f"{kernel}: N={n_dim} must be a multiple of 128")
+    a_batch, a_bstride = _split_batch(data, 3)
+    b_batch, b_bstride = _split_batch(dense, 2)
+    c_batch, c_bstride = _split_batch(out, 2)
+    batch = max(a_batch, b_batch)
+    if {a_batch, b_batch} - {1, batch} or c_batch != batch:
+        raise ValueError(f"{kernel}: batch axes disagree (sparse {a_batch}, dense {b_batch}, out {c_batch})")
+    if a_batch == 1:
+        a_bstride = 0
+    if b_batch == 1:
+        b_bstride = 0
+    out_shape = (n_dim, m_dim) if out_transposed else (m_dim, n_dim)
+    if tuple(out.shape[-2:]) != out_shape:
+        raise ValueError(f"{kernel}: out is {tuple(out.shape)}, expected {out_shape}")
+    for name, t in (("sparse data", data), ("dense", dense), ("out", out)):
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
+
+    if transpose_sparse:
+        m = sparse.with_transpose_metadata()
+        groups, deps, positions = m.offsets_t, m.indices_t, m.block_offsets
+    else:
+        groups, deps, positions = sparse.offsets, sparse.indices, None
+    for name, t in (("offsets", groups), ("indices", deps), ("block_offsets", positions)):
+        if t is not None and (t.dtype != torch.int32 or t.device != data.device or not t.is_contiguous()):
+            raise ValueError(f"{kernel}: {name} must be contiguous int32 on {data.device}")
+    n_groups = m_dim // bs
+    if n_groups > 65535 or batch > 65535:
+        raise ValueError(f"{kernel}: more than 65535 block-rows or batch entries")
+    # Element (i, j) of op(sparse) @ op(dense) goes to out[i * row + j * col].
+    row_stride, col_stride = (1, m_dim) if out_transposed else (n_dim, 1)
+    return (
+        data.data_ptr(), groups.data_ptr(), deps.data_ptr(), None if positions is None else positions.data_ptr(),
+        dense.data_ptr(), out.data_ptr(), n_groups, n_dim, batch, dense.stride(-2), row_stride, col_stride,
+        a_bstride, b_bstride, c_bstride,
+    )
 
 
 def stream(
@@ -114,73 +193,19 @@ def stream(
     out_scale=None,
 ) -> None:
     """Launch ``bsr_dsd_stream``: ``op(sparse) @ op(dense)`` into ``out``,
-    times ``out_scale`` at the flush when given.
-
-    ``out`` is ``([batch,] M, N)``, or ``([batch,] N, M)`` with
-    ``out_transposed`` (the DDS route). Raises ``ValueError`` for anything
-    the kernel does not take: CPU tensors, other dtypes, block sizes other
-    than 128, N not a multiple of 128, non-contiguous or misaligned data.
-    """
+    times ``out_scale`` at the flush when given. Raises ``ValueError`` for
+    what the kernel does not take (:func:`launch_args`, and dtypes other
+    than those of :func:`check_dtypes`)."""
     global LAUNCHES, LAUNCHES_Q8
+    args = launch_args(
+        "bsr_dsd_stream", sparse, dense, out, transpose_sparse=transpose_sparse, transpose_dense=transpose_dense,
+        out_transposed=out_transposed,
+        check_dtypes_fn=lambda a, b, c: check_dtypes("bsr_dsd_stream", a, b, c, out_scale),
+    )
     data = sparse.data
-    for name, t in (("sparse data", data), ("dense", dense), ("out", out)):
-        if not t.is_cuda:
-            raise ValueError(f"bsr_dsd_stream needs CUDA tensors; {name} is on {t.device}")
-    if dense.device != data.device or out.device != data.device:
-        raise ValueError("bsr_dsd_stream: operands are on different devices")
-    check_dtypes("bsr_dsd_stream", data.dtype, dense.dtype, out.dtype, out_scale)
-    bs = sparse.block_size
-    if bs != 128:
-        raise ValueError(f"bsr_dsd_stream: block size must be 128, got {bs}")
-    m_dim = sparse.cols if transpose_sparse else sparse.rows
-    k_dim = sparse.rows if transpose_sparse else sparse.cols
-    n_dim = dense.shape[-2] if transpose_dense else dense.shape[-1]
-    dk = dense.shape[-1] if transpose_dense else dense.shape[-2]
-    if dk != k_dim:
-        raise ValueError(f"bsr_dsd_stream: contraction mismatch, sparse gives k={k_dim}, dense {dk}")
-    if n_dim % 128:
-        raise ValueError(f"bsr_dsd_stream: N={n_dim} must be a multiple of 128")
-    a_batch, a_bstride = _split_batch(data, 3)
-    b_batch, b_bstride = _split_batch(dense, 2)
-    c_batch, c_bstride = _split_batch(out, 2)
-    batch = max(a_batch, b_batch)
-    if {a_batch, b_batch} - {1, batch} or c_batch != batch:
-        raise ValueError(
-            f"bsr_dsd_stream: batch axes disagree (sparse {a_batch}, dense {b_batch}, out {c_batch})"
-        )
-    if a_batch == 1:
-        a_bstride = 0
-    if b_batch == 1:
-        b_bstride = 0
-    out_shape = (n_dim, m_dim) if out_transposed else (m_dim, n_dim)
-    if tuple(out.shape[-2:]) != out_shape:
-        raise ValueError(f"bsr_dsd_stream: out is {tuple(out.shape)}, expected {out_shape}")
-    for name, t in (("sparse data", data), ("dense", dense), ("out", out)):
-        _check_aligned(name, t)
-
-    if transpose_sparse:
-        m = sparse.with_transpose_metadata()
-        groups, deps, positions = m.offsets_t, m.indices_t, m.block_offsets
-    else:
-        groups, deps, positions = sparse.offsets, sparse.indices, None
-    for name, t in (("offsets", groups), ("indices", deps), ("block_offsets", positions)):
-        if t is not None and (t.dtype != torch.int32 or t.device != data.device or not t.is_contiguous()):
-            raise ValueError(f"bsr_dsd_stream: {name} must be contiguous int32 on {data.device}")
-    n_groups = m_dim // bs
-    if n_groups > 65535 or batch > 65535:
-        raise ValueError("bsr_dsd_stream: more than 65535 block-rows or batch entries")
-    # Element (i, j) of op(sparse) @ op(dense) goes to out[i * row + j * col].
-    row_stride, col_stride = (1, m_dim) if out_transposed else (n_dim, 1)
     err = _kernel()(
-        data.data_ptr(), groups.data_ptr(), deps.data_ptr(),
-        None if positions is None else positions.data_ptr(),
-        dense.data_ptr(), out.data_ptr(),
-        n_groups, n_dim, batch,
-        dense.stride(-2), row_stride, col_stride,
-        a_bstride, b_bstride, c_bstride,
-        IN_KINDS[data.dtype], OUT_KINDS[out.dtype], 1.0 if out_scale is None else float(out_scale),
-        int(transpose_sparse), int(transpose_dense),
-        torch.cuda.current_stream(data.device).cuda_stream,
+        *args, IN_KINDS[data.dtype], OUT_KINDS[out.dtype], 1.0 if out_scale is None else float(out_scale),
+        int(transpose_sparse), int(transpose_dense), torch.cuda.current_stream(data.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"bsr_dsd_stream launch failed: cudaError {err}")
@@ -202,9 +227,11 @@ def dsd(
     transpose_b: bool = False,
     out_dtype=None,
     out_scale=None,
+    launch: Callable = stream,
 ) -> torch.Tensor:
     """C[M, N] = op(A_sparse) @ op(B_dense), times ``out_scale`` at the
-    flush (the dequantization of int8 operands, whose sum is exact)."""
+    flush (the dequantization of int8 operands, whose sum is exact), on the
+    kernel of ``launch``."""
     out_dtype = out_dtype or a.dtype
     if not a.data.is_cuda and not b.is_cuda:
         return dsd_reference(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype,
@@ -213,7 +240,7 @@ def dsd(
     n_dim = b.shape[-2] if transpose_b else b.shape[-1]
     batch = _batch_shape(a.batch_shape, b.shape[:-2])
     out = torch.empty(batch + (m_dim, n_dim), dtype=out_dtype, device=a.device)
-    stream(a, b, out, transpose_sparse=transpose_a, transpose_dense=transpose_b, out_transposed=False,
+    launch(a, b, out, transpose_sparse=transpose_a, transpose_dense=transpose_b, out_transposed=False,
            out_scale=out_scale)
     return out
 
@@ -226,8 +253,10 @@ def dds(
     transpose_b: bool = False,
     out_dtype=None,
     out_scale=None,
+    launch: Callable = stream,
 ) -> torch.Tensor:
-    """C[M, N] = op(A_dense) @ op(B_sparse), run as C^T = op(B)^T @ op(A)^T."""
+    """C[M, N] = op(A_dense) @ op(B_sparse), run as C^T = op(B)^T @ op(A)^T
+    on the kernel of ``launch``."""
     out_dtype = out_dtype or b.dtype
     if not a.is_cuda and not b.data.is_cuda:
         return dds_reference(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype,
@@ -236,6 +265,6 @@ def dds(
     n_dim = b.rows if transpose_b else b.cols
     batch = _batch_shape(b.batch_shape, a.shape[:-2])
     out = torch.empty(batch + (m_dim, n_dim), dtype=out_dtype, device=b.device)
-    stream(b, a, out, transpose_sparse=not transpose_b, transpose_dense=not transpose_a, out_transposed=True,
+    launch(b, a, out, transpose_sparse=not transpose_b, transpose_dense=not transpose_a, out_transposed=True,
            out_scale=out_scale)
     return out

@@ -15,7 +15,8 @@ Pallas predicates on the port's counterpart. DSD, DDS and SDD:
    (128-multiple blocks and dense dim, bf16 / fp32); the wrapper raises for
    the rest of what it cannot take (mixed dtypes, misaligned data). DSD /
    DDS also register ``cuda_bres`` / ``cuda_bres_q4`` (q-batched steps,
-   JAX's ``pallas_bres``), which first fit never reaches past the stream
+   JAX's ``pallas_bres``) and ``cuda_pipelined`` (the cp.async ring, JAX's
+   ``pallas_pipelined``), which first fit never reaches past the stream
    kernel, as in JAX.
 3. ``cuda_smallblock`` — block sizes 16 / 32 / 64 with host-known metadata
    (JAX's ``_*_small_can``): the packed small-block kernels, whose plans are
@@ -65,7 +66,7 @@ import torch
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels import (
-    bsr_dsd, bsr_dss, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd, reference, via_dense,
+    bsr_dsd, bsr_dsd_pipelined, bsr_dss, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd, reference, via_dense,
 )
 from sputnik_tpu_torch.kernels.bsr_flat import FlatSchedule, plan_dss, plan_sparse_out, plan_sss
 from sputnik_tpu_torch.kernels.common import _PLANS, cached_plan  # noqa: F401  (_PLANS: the cache)
@@ -219,6 +220,8 @@ registry.register("dsd", "xla_dense_detour", lambda a, b, **kw: _dense_can(a), r
 registry.register("dsd", "cuda_stream", _dsd_cuda_can, bsr_dsd.dsd)
 registry.register("dsd", "cuda_bres", _dsd_bres_can, bsr_qstream.dsd_bres)
 registry.register("dsd", "cuda_bres_q4", _dsd_bres_can, functools.partial(bsr_qstream.dsd_bres, q=4))
+registry.register("dsd", "cuda_pipelined", _dsd_cuda_can,
+                  functools.partial(bsr_dsd.dsd, launch=bsr_dsd_pipelined.pipelined))
 registry.register("dsd", "cuda_smallblock", _dsd_small_can, _dsd_small)
 registry.register("dsd", "jnp_fallback", _cuda_fallback_can, reference.dsd)
 registry.register("dsd", "torch_reference", _cpu_can, reference.dsd)
@@ -227,6 +230,8 @@ registry.register("dds", "xla_dense_detour", lambda a, b, **kw: _dense_can(b), r
 registry.register("dds", "cuda_stream", _dds_cuda_can, bsr_dsd.dds)
 registry.register("dds", "cuda_bres", _dds_bres_can, bsr_qstream.dds_bres)
 registry.register("dds", "cuda_bres_q4", _dds_bres_can, functools.partial(bsr_qstream.dds_bres, q=4))
+registry.register("dds", "cuda_pipelined", _dds_cuda_can,
+                  functools.partial(bsr_dsd.dds, launch=bsr_dsd_pipelined.pipelined))
 registry.register("dds", "cuda_smallblock", _dds_small_can, _dds_small)
 registry.register("dds", "jnp_fallback", _cuda_fallback_can, reference.dds)
 registry.register("dds", "torch_reference", _cpu_can, reference.dds)

@@ -16,7 +16,9 @@ attention with no host read, and top-k / sampled serving), and the
 small-block and int8 kernels (bsr_small_dsd, bsr_small_sdd,
 bsr_dsd_stream on int8, bsr_bres: against their plain versions, the
 sparse-output ops at bs 32 on both kinds of metadata, a small-block
-training step, int8 serving against the CPU, and what they refuse).
+training step, int8 serving against the CPU, and what they refuse), and
+the pipelined DSD / DDS kernel and the three mxu probes (against their
+plain versions, run to run, and cuda_pipelined's routes).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -26,6 +28,7 @@ no jax, so it runs on a machine that has only the port's dependencies:
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -34,8 +37,10 @@ import torch
 from sputnik_tpu_torch import ops, prune
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
 from sputnik_tpu_torch.bench import dss as dss_bench
+from sputnik_tpu_torch.bench import mxu_probe
 from sputnik_tpu_torch.kernels import (bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd,
                                        reference, sell)
+from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_attention as fa
 from sputnik_tpu_torch.kernels import flash_mha as fm
@@ -51,6 +56,8 @@ pytestmark = pytest.mark.gpu
 
 BS = 128
 MODES = [(False, False), (False, True), (True, False), (True, True)]
+pipe_dsd = functools.partial(bsr_dsd.dsd, launch=bsr_pipe.pipelined)
+pipe_dds = functools.partial(bsr_dsd.dds, launch=bsr_pipe.pipelined)
 
 
 @pytest.fixture
@@ -938,3 +945,90 @@ def test_small_bres_wrappers_raise_on_cuda(cuda):
         bsr_dsd.dsd(big.with_data(big.data.to(torch.int8)), x.to(torch.int8), out_dtype=torch.int32, out_scale=2.0)
     with pytest.raises(ValueError, match="int8"):
         quant.matmul_dsd_q8(big, x, scale_a=1.0, scale_b=1.0)
+
+
+def _held(got, want):
+    """fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    else:
+        assert testing.bf16_ulp_excess(got, want) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ta,tb", MODES)
+def test_pipelined_matches_plain(cuda, dtype, ta, tb):
+    """bsr_dsd_pipelined, DSD and DDS, against the plain versions and twice
+    bitwise equal: unordered indices with a batch of 2 sharing one
+    topology, and a BSR with empty block-rows and an empty block-column."""
+    rng = np.random.default_rng(60)
+    m, k, n = 512, 768, 256
+    a_shape, b_shape = _dims(m, k, n, ta, tb)
+    a = testing.random_bsr(rng, *a_shape, m * k // 3, BS, unordered=True, device=cuda)
+    a = a.with_data(_randn(rng, (2,) + tuple(a.data.shape), cuda, dtype))
+    b = _randn(rng, (2,) + b_shape, cuda, dtype)
+    got = pipe_dsd(a, b, transpose_a=ta, transpose_b=tb)
+    assert torch.equal(got, pipe_dsd(a, b, transpose_a=ta, transpose_b=tb))
+    _held(got, bsr_dsd.dsd_reference(a, b, transpose_a=ta, transpose_b=tb))
+    d = _randn(rng, (2,) + ((k, 384) if ta else (384, k)), cuda, dtype)
+    sp = testing.random_bsr(rng, *((n, k) if tb else (k, n)), n * k // 3, BS, unordered=True, device=cuda)
+    sp = sp.with_data(_randn(rng, tuple(sp.data.shape), cuda, dtype))
+    got = pipe_dds(d, sp, transpose_a=ta, transpose_b=tb, out_dtype=torch.float32)
+    assert torch.equal(got, pipe_dds(d, sp, transpose_a=ta, transpose_b=tb, out_dtype=torch.float32))
+    _held(got, bsr_dsd.dds_reference(d, sp, transpose_a=ta, transpose_b=tb, out_dtype=torch.float32))
+    ragged = testing.bsr_from_blocks(768, 768, [0, 0, 2, 5], [3, 0, 1, 4], rng.standard_normal((4, BS, BS)),
+                                     dtype=dtype, device=cuda)
+    x = _randn(rng, (256, 768) if tb else (768, 256), cuda, dtype)
+    got = pipe_dsd(ragged, x, transpose_a=ta, transpose_b=tb)
+    _held(got, bsr_dsd.dsd_reference(ragged, x, transpose_a=ta, transpose_b=tb))
+    empty = [2] if ta else [1, 3, 4]
+    assert not got.reshape(6, BS, 256)[empty].any()
+
+
+def test_pipelined_routes_and_first_fit(cuda):
+    """variant= and forced_variant launch bsr_dsd_pipelined; the first fit
+    keeps the stream kernel."""
+    rng = np.random.default_rng(61)
+    a = testing.random_bsr(rng, 512, 512, 512 * 512 // 4, BS, dtype=torch.bfloat16, device=cuda)
+    b = _randn(rng, (512, 256), cuda, torch.bfloat16)
+    bt = b.T.contiguous()
+    assert registry.dispatch_name("dsd", a, b) == registry.dispatch_name("dds", bt, a) == "cuda_stream"
+    launches = bsr_pipe.LAUNCHES, bsr_dsd.LAUNCHES
+    out = ops.matmul_dsd(a, b, variant="cuda_pipelined")
+    with registry.forced_variant("cuda_pipelined"):
+        out_t = ops.matmul_dds(bt, a)
+    torch.cuda.synchronize()
+    assert (bsr_pipe.LAUNCHES, bsr_dsd.LAUNCHES) == (launches[0] + 2, launches[1])
+    _held(out, reference.dsd(a, b))
+    _held(out_t, reference.dds(bt, a))
+    ops.matmul_dsd(a, b)
+    assert (bsr_pipe.LAUNCHES, bsr_dsd.LAUNCHES) == (launches[0] + 2, launches[1] + 1)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        pipe_dsd(a.astype(torch.int8), b.to(torch.int8))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_probes_match_plain(cuda, dtype):
+    """The three mxu probes against their plain versions, twice bitwise
+    equal: dense_stream with and without accumulate (the last step's
+    product), resident_stream at two m-tiles, tiled_matmul at every tile."""
+    rng = np.random.default_rng(62)
+    a, b = _randn(rng, (512, 1024), cuda, dtype), _randn(rng, (1024, 512), cuda, dtype)
+    full = mxu_probe.product_reference(a, b)
+    runs = [(lambda: mxu_probe.dense_stream(a, b, depth=256), full),
+            (lambda: mxu_probe.dense_stream(a, b, depth=256, n_tile=256), full),
+            (lambda: mxu_probe.dense_stream(a, b, depth=256, accumulate=False),
+             mxu_probe.dense_stream_reference(a, b, depth=256, accumulate=False)),
+            (lambda: mxu_probe.resident_stream(a, b, depth=512, mt=128), full),
+            (lambda: mxu_probe.resident_stream(a, b, depth=128, mt=256), full)]
+    runs += [(lambda c=c: mxu_probe.tiled_matmul(a, b, bm=c[0], bk=c[1], bn=c[2]), full)
+             for c in mxu_probe.SWEEP_CONFIGS]
+    before = dict(mxu_probe.LAUNCHES)
+    for fn, want in runs:
+        got = fn()
+        assert torch.equal(got, fn())
+        _held(got, want)
+    assert {k: mxu_probe.LAUNCHES[k] - before[k] for k in before} == {
+        "mxu_dense_stream": 6, "mxu_resident_stream": 4, "mxu_tiled_matmul": 2 * len(mxu_probe.SWEEP_CONFIGS)}
