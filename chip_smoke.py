@@ -6,8 +6,11 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the thirteen CUDA libraries from csrc/ (one nvcc each,
-   all started together) and print the seconds.
+   versions; build the sixteen CUDA libraries from csrc/ (one nvcc each,
+   all started together) and print the seconds. The run's autotune cache
+   (SPUTNIK_TPU_TORCH_TUNE_CACHE) is a file in a temporary directory of
+   its own, removed at the end, so that no dispatch reads a winner tuned
+   elsewhere.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
    attention shapes (T = 1024 and 2048, window 4, d_head 128, 8 heads), DSD at the
@@ -169,7 +172,27 @@ Phases (any failure raises and the script exits non-zero):
    plain versions, bounds and library yardsticks, and the pipelined and
    stream kernels side by side, DSD and DDS at d = 1024 / 2048 / 4096, 25%.
 
-The line before the last is {"kernels": [...]} (twenty-six kernels, each
+14. bench.py's tune pass, the roofline audit and the autotune cache, on the
+   q-stream, C-resident, group-resident and input-resident SDD kernels: (a)
+   bsr_qstream (dsd_q at q 1 / 2 / 4 / 8, every accum at q 4, dds_q,
+   dds_ct), bsr_cres and bsr_gres (DSD and DDS) and bsr_sdd_bres (pack 1
+   and 4) against their plain versions in all four modes, bf16 and fp32, at
+   the audit's d = 2048, 25%, at JAX's cres / gres test shape (m 640, k
+   384, n 512) and on a BSR with empty block-rows and an empty
+   block-column, its metadata rebuilt on the card for bsr_qstream and
+   bsr_cres: fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp, every
+   kernel twice bitwise equal; (b) every new variant= name launches its
+   kernel exactly, the first fits of DSD and SDD are unchanged and DDS's is
+   DDS_FIRST_FIT; (c) ops.benchmark_variants("dsd") at d = 2048, the winner
+   persisted by ops.autotune and dispatched, ops.clear_cache; (d) the
+   bench.dsd line tuned (the winner on stderr) and with --no-tune (the first
+   fit); (e) the roofline audit at d = 2048: 22 rows, no error, every
+   fraction at most 1.05, each row's variant; (c)-(e) are the benchmark
+   path whose launches the kernels line reports for the four kernels; (f)
+   the four kernels' device times beside their plain versions, bounds and
+   library yardsticks, and the other schedules beside the stream kernel.
+
+The line before the last is {"kernels": [...]} (thirty kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -180,8 +203,12 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import importlib
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -189,7 +216,7 @@ import torch
 import torch.nn.functional as F
 
 from sputnik_tpu_torch import ops, prune
-from sputnik_tpu_torch.bench import calibrate, mxu_probe
+from sputnik_tpu_torch.bench import calibrate, mxu_probe, roofline
 from sputnik_tpu_torch.bench import dlmc as dlmc_bench
 from sputnik_tpu_torch.bench import dsd as dsd_bench
 from sputnik_tpu_torch.bench import dss as dss_bench
@@ -197,8 +224,8 @@ from sputnik_tpu_torch.bench import moe as moe_bench
 from sputnik_tpu_torch.bench import serving as serving_bench
 from sputnik_tpu_torch.bench.models import PEAKS
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_dense
-from sputnik_tpu_torch.kernels import (_build, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small,
-                                       bsr_ssd, sell)
+from sputnik_tpu_torch.kernels import (_build, bsr_cres, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd,
+                                       bsr_small, bsr_ssd, reference, sell)
 from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_mha as fm
@@ -240,6 +267,7 @@ CHAIN_H, CHAIN_T, CHAIN_DH, CHAIN_WINDOW = 8, 2048, 128, 4
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = PEAKS["hbm_bps"], PEAKS["f32_flops"], PEAKS["bf16_flops"]
 f32 = torch.float32
 DEV = torch.device("cuda")
+autotune_mod = importlib.import_module("sputnik_tpu_torch.ops.autotune")
 
 
 class PhaseError(RuntimeError):
@@ -472,6 +500,8 @@ def reset_launches() -> None:
     bsm.LAUNCHES.update(dict.fromkeys(SOFTMAX, 0))
     mxu_probe.LAUNCHES.update(dict.fromkeys(mxu_probe.LAUNCHES, 0))
     bsr_pipe.LAUNCHES = 0
+    bsr_qstream.QSTREAM_LAUNCHES = bsr_sdd.BRES_LAUNCHES = 0
+    bsr_cres.LAUNCHES.update(dict.fromkeys(bsr_cres.LAUNCHES, 0))
 
 
 def launch_counts() -> dict:
@@ -2464,12 +2494,298 @@ def p13_kernel_times(rng, name_limit: str) -> dict:
 
 
 
+# ---------------------------------------------------------------- phase 14 --
+# bench.py's tune pass, the roofline audit and the autotune cache, on the
+# q-stream, C-resident, group-resident and input-resident SDD kernels.
+RESIDENT = ("bsr_qstream", "bsr_cres", "bsr_gres", "bsr_sdd_bres")
+AUDIT_D = 2048  # the roofline audit's width (sputnik_tpu/bench/roofline.py)
+DSD_Q = ("cuda_qstream", "cuda_qstream_q2", "cuda_qstream_vacc", "cuda_qstream_kcat", "cuda_qstream_kcat_q8")
+DDS_Q = ("cuda_qstream", "cuda_ct", "cuda_qstream_vacc", "cuda_qstream_kcat", "cuda_qstream_kcat_q8")
+# DDS's first fit (ops/matmul.py): see ROADMAP.md, "Differences by design".
+DDS_FIRST_FIT = "cuda_stream"
+
+
+def p14_counts() -> dict:
+    return {"bsr_qstream": bsr_qstream.QSTREAM_LAUNCHES, "bsr_cres": bsr_cres.LAUNCHES["bsr_cres"],
+            "bsr_gres": bsr_cres.LAUNCHES["bsr_gres"], "bsr_sdd_bres": bsr_sdd.BRES_LAUNCHES}
+
+
+def stored_bsr(m: BlockSparseMatrix, transposed: bool) -> BlockSparseMatrix:
+    """``m``, or with ``transposed`` its transpose stored as a BSR of its own
+    (contiguous blocks): the operand whose op() is ``m``."""
+    if not transposed:
+        return m
+    t = m.transpose()
+    return t.with_data(t.data.contiguous())
+
+
+def resident_cases(rng, errors) -> None:
+    """(a): the four kernels against their plain versions, bf16 and fp32,
+    all four modes, each twice bitwise equal: at the audit's d = 2048, 25%
+    (bsr_qstream at q 1 / 2 / 4 / 8, every accum at q 4, dds_q and dds_ct;
+    bsr_cres and bsr_gres, DSD and DDS; bsr_sdd_bres at pack 1 and 4), at
+    JAX's cres / gres test shape (m 640, k 384, n 512; gres also at
+    group_rows 2), and on a BSR with empty block-rows and an empty
+    block-column, unordered: its metadata rebuilt on the card for bsr_qstream
+    and bsr_cres (JAX: traced), host-known for bsr_gres and bsr_sdd_bres."""
+    n_cases = 0
+
+    def case(name, kname, kern, plain, dtype):
+        nonlocal n_cases
+        _p12_case(name, kname, kern, plain, dtype, errors)
+        n_cases += 1
+
+    def dsd_cases(tag, a, n, ta, tb, dtype, variants):
+        k = a.rows if ta else a.cols
+        x = randn(rng, (n, k) if tb else (k, n), dtype)
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        plain = lambda: bsr_dsd.dsd_reference(a, x, **kw)  # noqa: E731
+        for kname, label, fn in variants:
+            case(f"{kname} DSD {label} {tag} ta={ta} tb={tb} {dtype}", kname, lambda: fn(a, x, **kw), plain, dtype)
+
+    def dds_cases(tag, b, m, ta, tb, dtype, variants):
+        k = b.cols if tb else b.rows
+        y = randn(rng, (k, m) if ta else (m, k), dtype)
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        plain = lambda: bsr_dsd.dds_reference(y, b, **kw)  # noqa: E731
+        for kname, label, fn in variants:
+            case(f"{kname} DDS {label} {tag} ta={ta} tb={tb} {dtype}", kname, lambda: fn(y, b, **kw), plain, dtype)
+
+    def sdd_cases(tag, t, k, ta, tb, dtype, packs):
+        x = randn(rng, (k, t.rows) if ta else (t.rows, k), dtype)
+        y = randn(rng, (t.cols, k) if tb else (k, t.cols), dtype)
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        for pack in packs:
+            case(f"bsr_sdd_bres pack {pack} {tag} ta={ta} tb={tb} {dtype}", "bsr_sdd_bres",
+                 lambda: bsr_sdd.sdd_bres(x, y, t, pack=pack, **kw).data, lambda: reference.sdd(x, y, t, **kw).data,
+                 dtype)
+
+    q_dsd = [("bsr_qstream", f"q {q} {acc}", functools.partial(bsr_qstream.dsd_q, q=q, accum=acc))
+             for q, acc in ((1, "ref"), (2, "ref"), (4, "ref"), (4, "value"), (4, "kcat"), (8, "kcat"))]
+    q_dds = [("bsr_qstream", "dds_q", bsr_qstream.dds_q), ("bsr_qstream", "dds_ct", bsr_qstream.dds_ct)]
+    res_dsd = [("bsr_cres", "", bsr_cres.dsd_cres), ("bsr_gres", "", bsr_cres.dsd_gres)]
+    res_dds = [("bsr_cres", "", bsr_cres.dds_cres), ("bsr_gres", "", bsr_cres.dds_gres)]
+    gres2 = [("bsr_gres", "group_rows 2", functools.partial(bsr_cres.dsd_gres, group_rows=2))]
+    rows, cols = (0, 0, 0, 2, 2, 5, 5, 5), (3, 0, 5, 1, 4, 0, 4, 1)  # block-rows 1, 3, 4 and column 2 empty
+    for dtype in (torch.bfloat16, f32):
+        head = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, dtype, unordered=True)
+        jax_a = rand_bsr(rng, 640, 384, 0.3, dtype, unordered=True)
+        jax_b = rand_bsr(rng, 384, 512, 0.3, dtype, unordered=True)
+        ragged = testing.bsr_from_blocks(768, 768, rows, cols, np.zeros((len(rows), 128, 128), np.float32),
+                                         dtype=dtype, device=DEV)
+        ragged = ragged.with_data(randn(rng, tuple(ragged.data.shape), dtype))
+        card = dss_bench.card_built(ragged, False)
+        topo = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, dtype, unordered=True)
+        for ta, tb in MODES:
+            tag = f"{AUDIT_D}^2 25%"
+            dsd_cases(tag, head, AUDIT_D, ta, tb, dtype, q_dsd + res_dsd)
+            dds_cases(tag, head, AUDIT_D, ta, tb, dtype, q_dds + res_dds)
+            sdd_cases(tag, topo, AUDIT_D, ta, tb, dtype, (1, 4))
+            dsd_cases("640 x 384, n 512", stored_bsr(jax_a, ta), 512, ta, tb, dtype, res_dsd + gres2)
+            dds_cases("k 384, n 512, m 640", stored_bsr(jax_b, tb), 640, ta, tb, dtype, res_dds)
+            dsd_cases("ragged, card-built", card, 256, ta, tb, dtype, q_dsd[2:3] + res_dsd[:1])
+            dds_cases("ragged, card-built", card, 256, ta, tb, dtype, q_dds[1:] + res_dds[:1])
+            dsd_cases("ragged", ragged, 256, ta, tb, dtype, res_dsd[1:])
+            sdd_cases("ragged", ragged, 256, ta, tb, dtype, (4,))
+        del head, topo
+    print(f"  {n_cases} cases within tolerance, each twice bitwise equal; max |kernel - plain| in fp32: "
+          f"{ {k: errors.get(k) for k in RESIDENT} }", flush=True)
+
+
+def resident_routes(rng) -> None:
+    """(b): every new ``variant=`` name launches its kernel, exactly once per
+    product; DSD's and SDD's first fit are unchanged (cuda_stream,
+    cuda_output_stationary), DDS's is DDS_FIRST_FIT."""
+    bf16 = torch.bfloat16
+    a = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, bf16)
+    b = randn(rng, (AUDIT_D, AUDIT_D), bf16)
+    t = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, bf16)
+    torch.cuda.synchronize()
+    reset_launches()
+    for name in DSD_Q + ("cuda_cres", "cuda_gres"):
+        ops.matmul_dsd(a, b, variant=name)
+    for name in DDS_Q + ("cuda_cres", "cuda_gres"):
+        ops.matmul_dds(b, a, variant=name)
+    ops.matmul_sdd(b, b, t, transpose_b=True, variant="cuda_bres")
+    torch.cuda.synchronize()
+    want = {"bsr_qstream": 10, "bsr_cres": 2, "bsr_gres": 2, "bsr_sdd_bres": 1}
+    check(p14_counts() == want and bsr_dsd.LAUNCHES == 0 and bsr_sdd.LAUNCHES == 0,
+          f"variant= launched {p14_counts()}, stream {bsr_dsd.LAUNCHES}, sdd {bsr_sdd.LAUNCHES}; expected {want}")
+    names = (registry.dispatch_name("dsd", a, b), registry.dispatch_name("dds", b, a),
+             registry.dispatch_name("sdd", b, b, t, transpose_b=True))
+    check(names == ("cuda_stream", DDS_FIRST_FIT, "cuda_output_stationary"), f"first fit {names}")
+    reset_launches()
+    ops.matmul_dsd(a, b)
+    ops.matmul_dds(b, a)
+    ops.matmul_sdd(b, b, t, transpose_b=True)
+    torch.cuda.synchronize()
+    dds_cres = DDS_FIRST_FIT == "cuda_cres"
+    check((bsr_dsd.LAUNCHES, bsr_sdd.LAUNCHES, bsr_cres.LAUNCHES["bsr_cres"]) == (2 - dds_cres, 1, int(dds_cres)),
+          f"first fit launched stream {bsr_dsd.LAUNCHES}, sdd {bsr_sdd.LAUNCHES}, {p14_counts()}")
+    print(f"  variant=: launches {want}; first fit DSD cuda_stream, DDS {DDS_FIRST_FIT}, SDD cuda_output_stationary",
+          flush=True)
+
+
+def autotune_round_trip(rng) -> None:
+    """(c): ops.benchmark_variants("dsd") at the audit's width, the winner
+    persisted by ops.autotune and picked by dispatch (launching its kernel),
+    then ops.clear_cache: dispatch is back on first fit."""
+    bf16 = torch.bfloat16
+    a = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, bf16)
+    b = randn(rng, (AUDIT_D, AUDIT_D), bf16)
+    timings = ops.benchmark_variants("dsd", a, b)
+    print("  benchmark_variants: " + ", ".join(f"{k} {v * 1e6:.2f} us" for k, v in sorted(timings.items(),
+                                                                                       key=lambda kv: kv[1])),
+          flush=True)
+    check({"cuda_stream", "cuda_cres", "cuda_gres"} | set(DSD_Q) <= set(timings), f"untimed variants: {timings}")
+    check(not autotune_mod.PLAIN_VARIANTS & set(timings), f"plain variants timed on the card: {timings}")
+    winner = ops.autotune("dsd", a, b, timings=timings)
+    check(winner == min(timings, key=timings.get) and autotune_mod.cached_variant("dsd", (a, b), {}) == winner,
+          f"autotune kept {winner}")
+    check(registry.dispatch_name("dsd", a, b) == winner, "dispatch did not pick the tuned winner")
+    ops.clear_cache()
+    check(autotune_mod.cached_variant("dsd", (a, b), {}) is None and registry.dispatch_name("dsd", a, b)
+          == "cuda_stream", "clear_cache left the winner in place")
+    print(f"  autotune kept {winner}; dispatch picked it; clear_cache: first fit cuda_stream again", flush=True)
+
+
+def tuned_headline(name_limit: str, peaks: dict) -> None:
+    """(d): python -m sputnik_tpu_torch.bench.dsd's line with its tune pass
+    (the winner printed on stderr), then with --no-tune (the first fit)."""
+    tuned = dsd_bench.bench_dsd(4096, 0.25, peaks=peaks, tune=True)
+    check(tuned["variant"] in dsd_bench.TUNE_SHORTLIST, f"the tuned headline ran {tuned['variant']}")
+    first = dsd_bench.bench_dsd(4096, 0.25, peaks=peaks, tune=False)
+    check(first["variant"] == "cuda_stream", f"--no-tune ran {first['variant']}")
+    for r, how in ((tuned, "tuned"), (first, "--no-tune")):
+        print(f"  {how}: {r['variant']} {r['time_s'] * 1e6:.2f} us, {r['gflops']:.0f} GFLOP/s, {r['frac_sol']:.4f} "
+              f"of the data-sheet SoL on {name_limit}", flush=True)
+        print(json.dumps(dsd_bench.headline_line(r)), flush=True)
+    ops.clear_cache()
+
+
+def audit_rows(name_limit: str) -> None:
+    """(e): the roofline audit at d = 2048: 22 rows in JAX's order, no error,
+    every fraction of the speed of light at most 1.05 (the audit raises
+    above it), each row's variant."""
+    rows = roofline.audit(AUDIT_D, 0.25)
+    errors = [r for r in rows if "error" in r]
+    check(len(rows) == 22 and not errors, f"the audit gave {len(rows)} rows, errors {errors}")
+    check(all(r.get("frac_sol", 0) <= roofline.SOL_LIMIT for r in rows), "a fraction above 1.05")
+    print(roofline.table(rows, AUDIT_D, 0.25, "bfloat16", name_limit), flush=True)
+
+
+def p14_kernel_times(rng, name_limit: str) -> dict:
+    """(f): the four kernels at the audit's shape (d = 2048, 25%, bf16, NN;
+    SDD's row with transpose_b, as the audit's): CUDA-graph device time
+    beside the plain version, the bound and one PyTorch call computing the
+    same function (torch.matmul on a BSR tensor for DSD, and for DDS on the
+    BSR tensor of B^T times A^T, its transpose; none for SDD:
+    sampled_addmm takes no bf16). Returns {kernel: (ms, plain ms, library
+    ms, bound ms, bound by)}."""
+    d, bf16 = AUDIT_D, torch.bfloat16
+    a = rand_bsr(rng, d, d, 0.25, bf16)
+    b, x = randn(rng, (d, d), bf16), randn(rng, (d, d), bf16)
+    t = rand_bsr(rng, d, d, 0.25, bf16)
+    nnz = a.nnz_blocks * 128 * 128
+    nbytes, flops = nnz * 2 + 2 * d * d * 2, 2 * nnz * d
+    bsr_a = torch.sparse_bsr_tensor(a.offsets, a.indices, a.data, (d, d))
+    at = a.transpose()
+    bsr_at = torch.sparse_bsr_tensor(at.offsets, at.indices, at.data, (d, d))
+    bt = b.t().contiguous()
+    dsd_lib = library_call("bsr_qstream", lambda: torch.matmul(bsr_a, b))
+    dds_lib = library_call("bsr_cres", lambda: torch.matmul(bsr_at, bt))
+    results = {}
+
+    def row(kname, label, kern, plain, lib_ms, nbytes, flops):
+        (ms, call) = time_ms(kern)
+        plain_ms, how = _library_time(plain)
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        lib_text = f"library {lib_ms * 1e3:.2f} us" if lib_ms is not None else "library: none"
+        print(f"  {kname:<13} {label}: kernel {ms * 1e3:.2f} us device ({flops / ms / 1e9:.1f} TFLOP/s) / "
+              f"{call * 1e3:.2f} us call, plain {plain_ms * 1e3:.2f} us ({how}), {lib_text}, bound "
+              f"{bound * 1e3:.2f} us ({by}; {bound / ms:.3f} of it) on {name_limit}", flush=True)
+        results[kname] = (ms, plain_ms, lib_ms, bound, by)
+
+    shape = f"d={d} 25% NN bf16"
+    row("bsr_qstream", f"DSD q 4 {shape}", lambda: bsr_qstream.dsd_q(a, b), lambda: bsr_dsd.dsd_reference(a, b),
+        dsd_lib, nbytes, flops)
+    row("bsr_cres", f"DDS {shape}", lambda: bsr_cres.dds_cres(b, a), lambda: bsr_dsd.dds_reference(b, a), dds_lib,
+        nbytes, flops)
+    row("bsr_gres", f"DSD {shape}", lambda: bsr_cres.dsd_gres(a, b), lambda: bsr_dsd.dsd_reference(a, b), dsd_lib,
+        nbytes, flops)
+    tn = t.nnz_blocks * 128 * 128
+    row("bsr_sdd_bres", f"SDD pack 4, K = {d}, transpose_b {shape}",
+        lambda: bsr_sdd.sdd_bres(b, x, t, transpose_b=True), lambda: reference.sdd(b, x, t, transpose_b=True),
+        None, 2 * d * d * 2 + tn * 2, 2 * tn * d)
+    # The other schedules beside the stream kernel at the same shape.
+    for label, fn in (("DSD stream", lambda: bsr_dsd.dsd(a, b)), ("DDS stream", lambda: bsr_dsd.dds(b, a)),
+                      ("DSD cres", lambda: bsr_cres.dsd_cres(a, b)), ("DDS gres", lambda: bsr_cres.dds_gres(b, a)),
+                      ("DDS dds_q", lambda: bsr_qstream.dds_q(b, a)), ("DDS dds_ct", lambda: bsr_qstream.dds_ct(b, a)),
+                      ("SDD output-stationary", lambda: bsr_sdd.sdd(b, x, t, transpose_b=True))):
+        print(f"  {label} {shape}: {time_ms(fn)[0] * 1e3:.2f} us device", flush=True)
+    return results
+
+
+def dds_first_fit_times(rng, name_limit: str) -> None:
+    """(f): the times that decide DDS's first fit (DDS_FIRST_FIT): cuda_cres
+    and cuda_gres beside cuda_stream at the audit's bsr_dds (d = 2048, 25%,
+    bf16) and on each DDS problem of one bf16 MoE backward (phase 8's
+    width, bsr and dropless_bsr_fused). Phase 6's attention training step
+    runs no DDS: its VJPs are DSD and SDD."""
+    a = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, torch.bfloat16)
+    b = randn(rng, (AUDIT_D, AUDIT_D), torch.bfloat16)
+    problems = [(f"audit bsr_dds d={AUDIT_D} 25%", (b, a), {})]
+    seen, real = set(), registry.dispatch
+
+    def spy(op, *args, **kw):
+        if op == "dds":
+            key = tuple((tuple(x.shape), getattr(x, "nnz_blocks", None)) for x in args) + (str(sorted(kw.items())),)
+            if key not in seen:
+                seen.add(key)
+                problems.append((f"MoE {impl} backward DDS {tuple(args[0].shape)} x {tuple(args[1].shape)} "
+                                 f"{args[1].nnz_blocks} blocks {kw}", args, kw))
+        return real(op, *args, **kw)
+
+    params, x, topo = moe_setup(MOE)
+    registry.dispatch = spy
+    try:
+        for impl in ("bsr", "dropless_bsr_fused"):
+            y, aux = moe_forward_fn(impl, params, MOE, topo)(x.clone().requires_grad_())
+            (torch.mean(y.float() ** 2) + MOE.router_aux_weight * aux).backward()
+            params.zero_grad(set_to_none=True)
+    finally:
+        registry.dispatch = real
+    torch.cuda.synchronize()
+    for label, args, kw in problems:
+        times = []
+        for name in ("cuda_stream", "cuda_cres", "cuda_gres"):
+            v = next(v for v in registry.variants_for("dds") if v.name == name)
+            if v.can_implement(*args, **kw):
+                times.append(f"{name} {time_ms(lambda: v.launch(*args, **kw))[0] * 1e3:.2f} us")
+            else:
+                times.append(f"{name} cannot take it")
+        print(f"  DDS first fit, {label}: {', '.join(times)} device on {name_limit}", flush=True)
+    print(f"  DDS first fit registered: {DDS_FIRST_FIT}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name_limit = card()
+    # The autotune cache of this run: a file of its own, so that no dispatch
+    # reads a winner tuned elsewhere, removed at the end.
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["SPUTNIK_TPU_TORCH_TUNE_CACHE"] = os.path.join(tune_dir, "autotune.json")
+    autotune_mod._reset()  # read once per process: read it from here
+    try:
+        return run_phases(name_limit)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run_phases(name_limit: str) -> int:
 
     print("== phase 1: card and build", flush=True)
     print(f"card: {name_limit}", flush=True)
@@ -2477,7 +2793,7 @@ def main() -> int:
     start = time.perf_counter()
     builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
               bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel, bsr_pipe._kernel,
-              mxu_probe._lib)
+              mxu_probe._lib, bsr_qstream._qkernel, bsr_cres._lib, bsr_sdd._bres_kernel)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
         for built in [pool.submit(f) for f in builds]:
             built.result()
@@ -2787,6 +3103,36 @@ def main() -> int:
     print("(f) kernel times (CUDA-graph device time, 10 warm-up + 100 timed; library calls are yardsticks the "
           "port never calls)", flush=True)
     p13_times = p13_kernel_times(np.random.default_rng(28), name_limit)
+    torch.cuda.empty_cache()
+
+    print("== phase 14: bench.py's tune pass, the roofline audit and the autotune cache, on bsr_qstream, bsr_cres, "
+          "bsr_gres and bsr_sdd_bres", flush=True)
+    print(f"(a) the four kernels against their plain versions (d = {AUDIT_D}, JAX's 640 x 384 x 512, a ragged BSR)",
+          flush=True)
+    resident_cases(np.random.default_rng(29), errors)
+    torch.cuda.empty_cache()
+    print("(b) routes: every new variant= name; the first fits", flush=True)
+    resident_routes(np.random.default_rng(30))
+    # The benchmark path, (c)-(e), as a user runs it: the counts are zero
+    # before it and read after it.
+    torch.cuda.synchronize()
+    reset_launches()
+    print(f"(c) ops.benchmark_variants / autotune / clear_cache, DSD at d = {AUDIT_D}, 25%, bf16 (cache: "
+          f"{os.environ['SPUTNIK_TPU_TORCH_TUNE_CACHE']})", flush=True)
+    autotune_round_trip(np.random.default_rng(31))
+    print(f"(d) python -m sputnik_tpu_torch.bench.dsd (tuned), then --no-tune, on {name_limit}", flush=True)
+    tuned_headline(name_limit, peaks)
+    print(f"(e) python -m sputnik_tpu_torch.bench.roofline (d = {AUDIT_D}, 25%, bf16) on {name_limit}", flush=True)
+    audit_rows(name_limit)
+    torch.cuda.synchronize()
+    main_launches.update(p14_counts())
+    print(f"  launches on the benchmark path: {p14_counts()}", flush=True)
+    torch.cuda.empty_cache()
+    print("(f) kernel times (CUDA-graph device time, 10 warm-up + 100 timed; library calls are yardsticks the "
+          "port never calls)", flush=True)
+    p14_times = p14_kernel_times(np.random.default_rng(32), name_limit)
+    dds_first_fit_times(np.random.default_rng(33), name_limit)
+    torch.cuda.empty_cache()
 
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
@@ -2799,7 +3145,8 @@ def main() -> int:
     # and bsr_dsd_stream_q8, the benchmark path of phase 13 (c)-(e) for the
     # probes, and the variant= / forced_variant routes of phase 13 (b) for
     # bsr_dsd_pipelined (no serving or training path reaches it: the first
-    # fit keeps cuda_stream).
+    # fit keeps cuda_stream), and the benchmark path of phase 14 (c)-(e)
+    # for bsr_qstream, bsr_cres, bsr_gres and bsr_sdd_bres.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -2828,6 +3175,10 @@ def main() -> int:
         "mxu_tiled_matmul": ("sputnik_tpu_torch/csrc/mxu_probe.cu", "sputnik_tpu/bench/mxu_probe.py:157"),
         "bsr_dsd_pipelined": ("sputnik_tpu_torch/csrc/bsr_dsd_pipelined.cu",
                               "sputnik_tpu/kernels/bsr_dsd_pipelined.py:39"),
+        "bsr_qstream": ("sputnik_tpu_torch/csrc/bsr_qstream.cu", "sputnik_tpu/kernels/bsr_qstream.py:164"),
+        "bsr_cres": ("sputnik_tpu_torch/csrc/bsr_cres.cu", "sputnik_tpu/kernels/bsr_cres.py:58"),
+        "bsr_gres": ("sputnik_tpu_torch/csrc/bsr_cres.cu", "sputnik_tpu/kernels/bsr_cres.py:367"),
+        "bsr_sdd_bres": ("sputnik_tpu_torch/csrc/bsr_sdd_bres.cu", "sputnik_tpu/kernels/bsr_sdd.py:349"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
@@ -2836,6 +3187,7 @@ def main() -> int:
     measured.update(so_times)
     measured.update(p12_times)
     measured.update(p13_times)
+    measured.update(p14_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

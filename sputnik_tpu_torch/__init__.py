@@ -26,13 +26,21 @@ sampled serving, and the serving benchmark; block sizes 16, 32 and 64 on
 two more (``csrc/bsr_small.cu``: packed DSD / DDS and SDD) with block
 pruning and RigL (``prune``); int8 quantized serving (``ops.quant``) on the
 stream kernel's int8 mode and one more (``csrc/bsr_bres.cu``, q blocks per
-step).
+step); the benchmark tools (``bench``: the headline with its tune pass,
+calibration, the MXU probes on three more, the roofline audit) and the
+autotune cache (``ops.autotune``, versioned by ``__version__``); the other
+DSD / DDS / SDD schedules on five more (``csrc/bsr_dsd_pipelined.cu``,
+``csrc/bsr_qstream.cu``, ``csrc/bsr_cres.cu``: contraction-major with the
+accumulator kept to one flush, whole-output or per group, and
+``csrc/bsr_sdd_bres.cu``).
 Entry points build on the CUDA card unless given ``device="cpu"``. It
 imports torch and never jax.
 """
 
-from sputnik_tpu_torch import models, ops
-from sputnik_tpu_torch.formats import (
+__version__ = "0.9.0"
+
+from sputnik_tpu_torch import models, ops  # noqa: E402
+from sputnik_tpu_torch.formats import (  # noqa: E402
     BlockSparseMatrix,
     CsrMatrix,
     EllMatrix,
@@ -43,7 +51,7 @@ from sputnik_tpu_torch.formats import (
     csr_to_dense,
     sorted_row_swizzle,
 )
-from sputnik_tpu_torch.ops import (
+from sputnik_tpu_torch.ops import (  # noqa: E402
     matmul, matmul_dds, matmul_dsd, matmul_dss, matmul_sdd, matmul_sds, matmul_ssd, matmul_sss,
 )
 

@@ -1,10 +1,9 @@
 """Analytic flops / bytes models of the BSR ops and the speed of light
 (``sputnik_tpu/bench/models.py``), with the H100's peaks.
 
-One place for the accounting that ``bench/dsd.py`` and ``chip_smoke.py``
-divide by, so every published fraction measures against the same
-definition (the SDD, sparse-output and softmax models wait for the port of
-the roofline audit, ROADMAP item 16). The formulas are the JAX
+One place for the accounting that ``bench/dsd.py``, ``bench/roofline.py``
+and ``chip_smoke.py`` divide by, so every published fraction measures
+against the same definition. The formulas are the JAX
 package's, function for function (held equal by
 ``tests/test_torch_bench.py``): the byte models are reuse-aware, with the
 streamed dense-operand traffic floored at each touched tile read once per

@@ -1,11 +1,23 @@
-"""DSD / DDS on the ``bsr_bres`` CUDA kernel (``csrc/bsr_bres.cu``): the
-q-batched plan of the JAX package's dense-resident schedule.
+"""DSD / DDS on the q-batched slot plan of the JAX package's
+``sputnik_tpu/kernels/bsr_qstream.py``, on two CUDA kernels:
 
-Port of the bres part of ``sputnik_tpu/kernels/bsr_qstream.py``
-(``dsd_bres``, ``dds_bres``, ``_plan``). A plan step is ``q`` blocks of one
-output block-row (DSD) or column (DDS), contracted as one product of
-depth ``q * 128``, with ``out_scale`` at the flush; bf16, fp32 and int8
-(exact int32 accumulation) operands, all four transpose modes. The plan
+* ``bsr_qstream`` (``csrc/bsr_qstream.cu``; :func:`dsd_q`, :func:`dds_q`,
+  :func:`dds_ct`, the registry's ``cuda_qstream*`` and ``cuda_ct``): the
+  q-stream schedule, a step's live slots streamed through a cp.async ring;
+  bf16 and fp32, all four transpose modes. ``accum`` (``"ref"``,
+  ``"value"``, ``"kcat"``) is how a TPU step adds its q dots into its VMEM
+  accumulator; on the card the accumulator stays in registers for the
+  whole tile, so the three are one computation and the name is only
+  validated. :func:`dds_ct` accumulates DDS's tile transposed, as JAX's
+  does (the sparse block on the product's A side, the tile stored
+  transposed); :func:`dds_q` puts the dense panel there;
+* ``bsr_bres`` (``csrc/bsr_bres.cu``; :func:`dsd_bres`, :func:`dds_bres`):
+  the dense-resident schedule, a plan step's ``q`` blocks of one output
+  block-row (DSD) or column (DDS) contracted as one product of depth
+  ``q * 128``, with ``out_scale`` at the flush; bf16, fp32 and int8 (exact
+  int32 accumulation) operands, all four transpose modes.
+
+The plan
 (:func:`plan`) pads every group's run to a multiple of ``q`` slots,
 forward-fills a padding slot's ids from its lane's previous step and counts
 each step's live slots (``nv``). Host-known metadata is planned on the host
@@ -14,9 +26,10 @@ planned on the card with torch ops (:func:`plan_on_device`), at JAX's
 static worst-case length, reading nothing back. Plans are cached per
 topology.
 
-On CPU tensors the wrappers compute the kernel's plain version from the
-same plan (:func:`bres_reference`); on CUDA tensors they launch the kernel,
-or raise for a problem it does not take.
+On CPU tensors the wrappers compute the kernels' plain version from the
+same plan (:func:`bres_reference`: both kernels compute that function);
+on CUDA tensors they launch the kernel, or raise for a problem it does not
+take. ``LAUNCHES`` counts ``bsr_bres``, ``QSTREAM_LAUNCHES`` ``bsr_qstream``.
 """
 
 from __future__ import annotations
@@ -34,16 +47,20 @@ from sputnik_tpu_torch.kernels import _build, reference
 from sputnik_tpu_torch.kernels.bsr_dsd import IN_KINDS, OUT_KINDS, check_dtypes
 from sputnik_tpu_torch.kernels.common import cached_plan, oriented
 
-__all__ = ["dsd_bres", "dds_bres", "plan", "plan_on_device", "BresPlan", "bres_reference", "LAUNCHES",
-           "BRES_MAX_DENSE_BYTES"]
+__all__ = ["dsd_q", "dds_q", "dds_ct", "dsd_bres", "dds_bres", "plan", "plan_on_device", "BresPlan",
+           "bres_reference", "LAUNCHES", "QSTREAM_LAUNCHES", "ACCUMS", "BRES_MAX_DENSE_BYTES"]
 
 # The JAX package's VMEM budget for the resident dense operand (a TPU
 # figure, kept so that both packages route alike; to be measured again on
 # the H100).
 BRES_MAX_DENSE_BYTES = 96 << 20
 
-# Launches of bsr_bres in this process.
+# Launches of bsr_bres and of bsr_qstream in this process.
 LAUNCHES = 0
+QSTREAM_LAUNCHES = 0
+
+# The JAX package's ways of adding a step's q dots into a TPU accumulator.
+ACCUMS = ("ref", "value", "kcat")
 
 
 @dataclasses.dataclass(eq=False)
@@ -304,3 +321,164 @@ def dds_bres(
     _launch(bres, b, a, out, transpose_sparse=not transpose_b, transpose_dense=not transpose_a,
             out_transposed=True, out_scale=out_scale)
     return out
+
+
+# ------------------------------------------------------------ the q-stream --
+# Operand / output dtype -> bsr_qstream's kernel code.
+_Q_KINDS = {torch.bfloat16: 0, torch.float32: 1}
+
+@functools.cache
+def _qkernel():
+    fn = _build.load("bsr_qstream").bsr_qstream
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p]
+    )
+    return fn
+
+
+def _check_accum(accum: str) -> None:
+    if accum not in ACCUMS:
+        raise ValueError(f"accum must be one of {ACCUMS}, got {accum!r}")
+
+
+def _qstream_launch(qplan: BresPlan, sparse: BlockSparseMatrix, dense: torch.Tensor, out: torch.Tensor, *,
+                    sparse_a: bool, transpose_a: bool, transpose_b: bool, free_dim: int,
+                    row_stride: int, col_stride: int) -> None:
+    """Launch ``bsr_qstream``: one CTA per (plan group, 128-wide tile of the
+    dense operand's free dimension); ``transpose_a`` / ``transpose_b`` are
+    the stored orientations of the tile product's A and B operands,
+    ``free_dim`` the dense operand's dimension that the tiles cut."""
+    global QSTREAM_LAUNCHES
+    data = sparse.data
+    for name, t in (("sparse data", data), ("dense", dense), ("out", out)):
+        if not t.is_cuda:
+            raise ValueError(f"bsr_qstream needs CUDA tensors; {name} is on {t.device}")
+        if t.device != out.device:
+            raise ValueError("bsr_qstream: operands are on different devices")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"bsr_qstream: {name} must be contiguous and 16-byte aligned")
+    if data.dtype not in _Q_KINDS or dense.dtype != data.dtype:
+        raise ValueError(f"bsr_qstream takes bf16 or fp32 operands of one dtype, got {data.dtype} and {dense.dtype}")
+    if out.dtype not in _Q_KINDS:
+        raise ValueError(f"bsr_qstream: output dtype {out.dtype} not supported (bf16 or fp32)")
+    if sparse.block_size != 128:
+        raise ValueError(f"bsr_qstream: block size must be 128, got {sparse.block_size}")
+    if free_dim % 128:
+        raise ValueError(f"bsr_qstream: the dense dimension {free_dim} must be a multiple of 128")
+    if data.ndim != 3 or dense.ndim != 2:
+        raise ValueError("bsr_qstream: operands with a batch axis are not supported")
+    offsets, dep_q, data_q, nv, _ = qplan.device_arrays(out.device)
+    n_groups = offsets.shape[0] - 1
+    if n_groups > 65535:
+        raise ValueError("bsr_qstream: more than 65535 output groups")
+    err = _qkernel()(
+        data.data_ptr(), offsets.data_ptr(), dep_q.data_ptr(), data_q.data_ptr(), nv.data_ptr(), dense.data_ptr(),
+        out.data_ptr(), n_groups, free_dim // 128, qplan.q, dense.stride(0), row_stride, col_stride, _Q_KINDS[data.dtype],
+        _Q_KINDS[out.dtype], int(sparse_a), int(transpose_a), int(transpose_b),
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"bsr_qstream launch failed: cudaError {err}")
+    QSTREAM_LAUNCHES += 1
+
+
+def _dsd_shapes(a: BlockSparseMatrix, b: torch.Tensor, transpose_a: bool, transpose_b: bool):
+    m_dim = a.cols if transpose_a else a.rows
+    k_dim = a.rows if transpose_a else a.cols
+    bk = b.shape[-1] if transpose_b else b.shape[-2]
+    if bk != k_dim:
+        raise ValueError(f"contraction mismatch: A gives k={k_dim}, B gives {bk}")
+    return m_dim, b.shape[-2] if transpose_b else b.shape[-1]
+
+
+def _dds_shapes(a: torch.Tensor, b: BlockSparseMatrix, transpose_a: bool, transpose_b: bool):
+    n_dim = b.rows if transpose_b else b.cols
+    k_dim = b.cols if transpose_b else b.rows
+    ak = a.shape[-2] if transpose_a else a.shape[-1]
+    if ak != k_dim:
+        raise ValueError(f"contraction mismatch: B gives k={k_dim}, A gives {ak}")
+    return a.shape[-1] if transpose_a else a.shape[-2], n_dim
+
+
+def dsd_q(
+    a: BlockSparseMatrix,
+    b: torch.Tensor,
+    *,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    out_dtype=None,
+    q: int = 4,
+    accum: str = "ref",
+) -> torch.Tensor:
+    """C[M, N] = op(A_sparse) @ op(B_dense), q blocks of an output
+    block-row per plan step (JAX's ``dsd_q``; ``accum`` as the module
+    says)."""
+    _check_accum(accum)
+    out_dtype = out_dtype or a.dtype
+    m_dim, n_dim = _dsd_shapes(a, b, transpose_a, transpose_b)
+    if a.nnz_blocks == 0:
+        return torch.zeros((m_dim, n_dim), dtype=out_dtype, device=a.device)
+    qplan = sparse_plan(a, transpose_a, q)
+    if not a.data.is_cuda and not b.is_cuda:
+        return bres_reference(qplan, a.data, b, n_groups=m_dim // a.block_size, transpose_sparse=transpose_a,
+                              transpose_dense=transpose_b, out_dtype=out_dtype)
+    out = torch.empty((m_dim, n_dim), dtype=out_dtype, device=a.device)
+    _qstream_launch(qplan, a, b, out, sparse_a=True, transpose_a=transpose_a, transpose_b=transpose_b,
+                    free_dim=n_dim, row_stride=n_dim, col_stride=1)
+    return out
+
+
+def _dds_qstream(a, b, *, transpose_a, transpose_b, out_dtype, q, acc_t):
+    out_dtype = out_dtype or b.dtype
+    m_dim, n_dim = _dds_shapes(a, b, transpose_a, transpose_b)
+    if b.nnz_blocks == 0:
+        return torch.zeros((m_dim, n_dim), dtype=out_dtype, device=b.device)
+    qplan = sparse_plan(b, not transpose_b, q)
+    if not a.is_cuda and not b.data.is_cuda:
+        ct = bres_reference(qplan, b.data, a, n_groups=n_dim // b.block_size, transpose_sparse=not transpose_b,
+                            transpose_dense=not transpose_a, out_dtype=out_dtype)
+        return ct.transpose(0, 1).contiguous()
+    out = torch.empty((m_dim, n_dim), dtype=out_dtype, device=b.device)
+    if acc_t:  # the tile as (n, m) = op(B)^T . op(A)^T, stored transposed
+        _qstream_launch(qplan, b, a, out, sparse_a=True, transpose_a=not transpose_b, transpose_b=not transpose_a,
+                        free_dim=m_dim, row_stride=1, col_stride=n_dim)
+    else:  # the tile as (m, n) = op(A) . op(B)
+        _qstream_launch(qplan, b, a, out, sparse_a=False, transpose_a=transpose_a, transpose_b=transpose_b,
+                        free_dim=m_dim, row_stride=n_dim, col_stride=1)
+    return out
+
+
+def dds_q(
+    a: torch.Tensor,
+    b: BlockSparseMatrix,
+    *,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    out_dtype=None,
+    q: int = 4,
+    accum: str = "ref",
+) -> torch.Tensor:
+    """C[M, N] = op(A_dense) @ op(B_sparse), q blocks of an output
+    block-column per plan step, the dense panel on the tile product's A
+    side (JAX's ``dds_q``)."""
+    _check_accum(accum)
+    return _dds_qstream(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype, q=q,
+                        acc_t=False)
+
+
+def dds_ct(
+    a: torch.Tensor,
+    b: BlockSparseMatrix,
+    *,
+    transpose_a: bool = False,
+    transpose_b: bool = False,
+    out_dtype=None,
+    q: int = 4,
+    **_,
+) -> torch.Tensor:
+    """DDS with the transposed accumulator (JAX's ``dds_ct``): the tile
+    accumulated as (n, m) = op(B)^T @ op(A)^T and stored transposed."""
+    return _dds_qstream(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype, q=q,
+                        acc_t=True)

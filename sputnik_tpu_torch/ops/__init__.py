@@ -11,7 +11,9 @@ registered with the variants ``cuda_flash`` and ``torch_reference``;
 ``bsr_softmax`` takes ``variant="pallas"`` (its two kernels) or ``"jnp"``
 (the torch chain); ``sdd_softmax`` is the fused SDD + softmax. ``quant``
 is the int8 serving path (``quantize``, ``quantize_bsr``,
-``matmul_dsd_q8``, ``matmul_dds_q8``).
+``matmul_dsd_q8``, ``matmul_dds_q8``). ``autotune``, ``benchmark_variants``
+and ``clear_cache`` (``ops/autotune.py``) time the registered variants of a
+problem and keep the winner, which dispatch then picks.
 """
 
 from sputnik_tpu_torch.ops import registry
@@ -26,9 +28,11 @@ from sputnik_tpu_torch.ops.softmax import bsr_softmax, sdd_softmax
 from sputnik_tpu_torch.kernels.flash_mha import flash_mha  # noqa: E402  isort: skip
 from sputnik_tpu_torch.ops import csr  # noqa: E402  isort: skip
 from sputnik_tpu_torch.ops import quant  # noqa: E402  isort: skip
+from sputnik_tpu_torch.ops.autotune import autotune, benchmark_variants, clear_cache  # noqa: E402  isort: skip
 
 __all__ = [
     "matmul", "matmul_dsd", "matmul_dds", "matmul_sdd", "matmul_ssd", "matmul_sds", "matmul_dss", "matmul_sss",
     "dsd", "dds", "sdd", "ssd", "sds", "dss", "sss", "FlatSchedule", "plan_ssd", "plan_sds", "plan_dss",
-    "plan_sss", "registry", "bsr_softmax", "sdd_softmax", "flash_mha", "csr", "quant",
+    "plan_sss", "registry", "bsr_softmax", "sdd_softmax", "flash_mha", "csr", "quant", "autotune",
+    "benchmark_variants", "clear_cache",
 ]

@@ -10,14 +10,30 @@ Pallas predicates on the port's counterpart. DSD, DDS and SDD:
    >= ``DENSIFY_THRESHOLD``) is densified and multiplied with one fp32
    ``torch.matmul``, on any device, as the JAX package hands it to XLA's
    dense dot.
-2. the Hopper kernel (``cuda_stream`` for DSD/DDS, ``cuda_output_stationary``
-   for SDD) — the CUDA problems the JAX package's Pallas predicates accept
-   (128-multiple blocks and dense dim, bf16 / fp32); the wrapper raises for
-   the rest of what it cannot take (mixed dtypes, misaligned data). DSD /
-   DDS also register ``cuda_bres`` / ``cuda_bres_q4`` (q-batched steps,
-   JAX's ``pallas_bres``) and ``cuda_pipelined`` (the cp.async ring, JAX's
-   ``pallas_pipelined``), which first fit never reaches past the stream
-   kernel, as in JAX.
+2. the Hopper kernels — the CUDA problems the JAX package's Pallas
+   predicates accept (128-multiple blocks and dense dim, bf16 / fp32); the
+   wrappers raise for the rest of what they cannot take (mixed dtypes,
+   misaligned data). In JAX's order, its names moved from ``pallas_`` to
+   ``cuda_``:
+
+   * DSD: ``cuda_stream`` (first fit), ``cuda_qstream`` (q 4),
+     ``cuda_qstream_q2``, ``cuda_qstream_vacc``, ``cuda_qstream_kcat``,
+     ``cuda_qstream_kcat_q8`` (``bsr_qstream``), ``cuda_bres`` /
+     ``cuda_bres_q4`` (``bsr_bres``), ``cuda_cres`` (``bsr_cres``),
+     ``cuda_gres`` (``bsr_gres``), ``cuda_pipelined``;
+   * DDS: ``cuda_stream`` (first fit), ``cuda_cres``, ``cuda_gres`` (JAX
+     puts these two first, cres its first fit where the accumulator fits
+     its VMEM; both are slower than the stream kernel on the H100),
+     ``cuda_qstream``,
+     ``cuda_ct``, ``cuda_qstream_vacc``, ``cuda_qstream_kcat``,
+     ``cuda_qstream_kcat_q8``, ``cuda_bres`` / ``cuda_bres_q4``,
+     ``cuda_pipelined``;
+   * SDD: ``cuda_output_stationary`` (first fit), ``cuda_bres``
+     (``bsr_sdd_bres``).
+
+   JAX tests concrete metadata where the port tests ``host_known``
+   (``cuda_gres``, SDD's ``cuda_bres``); the variants past the stream
+   kernels take no batch axis, as JAX's kernels have none.
 3. ``cuda_smallblock`` — block sizes 16 / 32 / 64 with host-known metadata
    (JAX's ``_*_small_can``): the packed small-block kernels, whose plans are
    cached per topology.
@@ -45,8 +61,9 @@ SSD / SDS / DSS / SSS:
 * SSS: ``cuda_flat`` -> ``dss_extract`` (DSS's first fit, then a block
   gather) -> ``jnp_fallback`` -> ``torch_reference``.
 
-The thresholds (0.25, 1/16, 0.1, and ``bsr_qstream.BRES_MAX_DENSE_BYTES``)
-are the JAX package's, measured on a TPU: kept so that both packages route
+The thresholds (0.25, 1/16, 0.1, ``bsr_qstream.BRES_MAX_DENSE_BYTES``,
+``bsr_cres.ACC_BUDGET`` and ``bsr_sdd.SDD_BRES_MAX_BYTES``) are the JAX
+package's, measured on a TPU: kept so that both packages route
 alike, to be measured again on the H100. ``cuda_flat`` and
 ``cuda_smallblock`` take CPU problems too, and then compute their kernel's
 plain version from the same plan. Plans, work lists and position maps are
@@ -66,7 +83,8 @@ import torch
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels import (
-    bsr_dsd, bsr_dsd_pipelined, bsr_dss, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd, reference, via_dense,
+    bsr_cres, bsr_dsd, bsr_dsd_pipelined, bsr_dss, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd, reference,
+    via_dense,
 )
 from sputnik_tpu_torch.kernels.bsr_flat import FlatSchedule, plan_dss, plan_sparse_out, plan_sss
 from sputnik_tpu_torch.kernels.common import _PLANS, cached_plan  # noqa: F401  (_PLANS: the cache)
@@ -94,8 +112,10 @@ def _cpu_can(*args, **_) -> bool:
     return _on("cpu", *args)
 
 
-def _dense_can(sparse: BlockSparseMatrix) -> bool:
-    return sparse.density >= DENSIFY_THRESHOLD
+def _dense_can(sparse: BlockSparseMatrix, schedule=None, plan=None) -> bool:
+    """JAX's ``_*_densify_can``: a given schedule or plan is the caller's
+    choice of a planned kernel, never swallowed."""
+    return schedule is None and plan is None and sparse.density >= DENSIFY_THRESHOLD
 
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -212,22 +232,95 @@ def _sdd_small(a, b, t, *, transpose_a=False, transpose_b=False, out_dtype=None,
                                     schedule=plan)
 
 
+def _dsd_q_can(a, b, **kw):
+    """JAX's ``_dsd_can``, unbatched (the q-stream kernel takes no batch axis)."""
+    return _unbatched(a, b) and _dsd_cuda_can(a, b, **kw)
+
+
+def _dds_q_can(a, b, **kw):
+    return _unbatched(a, b) and _dds_cuda_can(a, b, **kw)
+
+
+def _dsd_cres_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    """JAX's ``_dsd_cres_can``: the fp32 (m, n) accumulator and four dense
+    strips within ``ACC_BUDGET``."""
+    if not _dsd_q_can(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype):
+        return False
+    m_dim = a.cols if transpose_a else a.rows
+    n_dim = b.shape[0] if transpose_b else b.shape[1]
+    return bsr_cres.fits_vmem(m_dim, n_dim, n_dim * a.block_size * b.element_size())
+
+
+def _dds_cres_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    if not _dds_q_can(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype):
+        return False
+    m_dim = a.shape[1] if transpose_a else a.shape[0]
+    n_dim = b.rows if transpose_b else b.cols
+    return bsr_cres.fits_vmem(m_dim, n_dim, m_dim * b.block_size * a.element_size())
+
+
+def _dsd_gres_can(a, b, plan=None, **kw):
+    """JAX's ``_dsd_gres_can``: a given plan, or metadata known on the host
+    (JAX: concrete)."""
+    return _dsd_q_can(a, b, **kw) and (plan is not None or a.host_known)
+
+
+def _dds_gres_can(a, b, plan=None, **kw):
+    return _dds_q_can(a, b, **kw) and (plan is not None or b.host_known)
+
+
+def _sdd_bres_can(a, b, t, transpose_a=False, transpose_b=False, out_dtype=None, schedule=None, **kw):
+    """JAX's ``_sdd_bres_can``: a host plan (a given ``schedule`` or
+    host-known topology) and both operands within ``SDD_BRES_MAX_BYTES``."""
+    if not (_unbatched(a, b, t) and _sdd_cuda_can(a, b, t, transpose_a=transpose_a, transpose_b=transpose_b,
+                                                  out_dtype=out_dtype)):
+        return False
+    if schedule is None and not t.host_known:
+        return False
+    m_dim, k_dim = (a.shape[1], a.shape[0]) if transpose_a else (a.shape[0], a.shape[1])
+    n_dim = b.shape[0] if transpose_b else b.shape[1]
+    bs = t.block_size
+    return (m_dim % bs == 0 and n_dim % bs == 0
+            and (m_dim + n_dim) * k_dim * a.element_size() <= bsr_sdd.SDD_BRES_MAX_BYTES)
+
+
 # First fit, as the JAX package's: the kernel for what its ``_dsd_can`` /
 # ``_dds_can`` / ``_sdd_can`` accept, the small-block kernels for what its
 # ``_*_small_can`` accept, else ``jnp_fallback``, the densify detour (one
 # fp32 torch.matmul, JAX's hand-off to XLA's dot).
-registry.register("dsd", "xla_dense_detour", lambda a, b, **kw: _dense_can(a), reference.dsd)
+registry.register("dsd", "xla_dense_detour", lambda a, b, schedule=None, plan=None, **kw: _dense_can(a, schedule, plan),
+                  reference.dsd)
 registry.register("dsd", "cuda_stream", _dsd_cuda_can, bsr_dsd.dsd)
+registry.register("dsd", "cuda_qstream", _dsd_q_can, bsr_qstream.dsd_q)
+registry.register("dsd", "cuda_qstream_q2", _dsd_q_can, functools.partial(bsr_qstream.dsd_q, q=2))
+registry.register("dsd", "cuda_qstream_vacc", _dsd_q_can, functools.partial(bsr_qstream.dsd_q, accum="value"))
+registry.register("dsd", "cuda_qstream_kcat", _dsd_q_can, functools.partial(bsr_qstream.dsd_q, accum="kcat"))
+registry.register("dsd", "cuda_qstream_kcat_q8", _dsd_q_can, functools.partial(bsr_qstream.dsd_q, accum="kcat", q=8))
 registry.register("dsd", "cuda_bres", _dsd_bres_can, bsr_qstream.dsd_bres)
 registry.register("dsd", "cuda_bres_q4", _dsd_bres_can, functools.partial(bsr_qstream.dsd_bres, q=4))
+registry.register("dsd", "cuda_cres", _dsd_cres_can, bsr_cres.dsd_cres)
+registry.register("dsd", "cuda_gres", _dsd_gres_can, bsr_cres.dsd_gres)
 registry.register("dsd", "cuda_pipelined", _dsd_cuda_can,
                   functools.partial(bsr_dsd.dsd, launch=bsr_dsd_pipelined.pipelined))
 registry.register("dsd", "cuda_smallblock", _dsd_small_can, _dsd_small)
 registry.register("dsd", "jnp_fallback", _cuda_fallback_can, reference.dsd)
 registry.register("dsd", "torch_reference", _cpu_can, reference.dsd)
 
-registry.register("dds", "xla_dense_detour", lambda a, b, **kw: _dense_can(b), reference.dds)
+registry.register("dds", "xla_dense_detour", lambda a, b, schedule=None, plan=None, **kw: _dense_can(b, schedule, plan),
+                  reference.dds)
+# JAX registers cuda_cres and cuda_gres before the stream kernel (its DDS
+# first fit where the accumulator fits its VMEM); on the H100 both are
+# slower than bsr_dsd_stream at the audit's shape and at the MoE backward's
+# DDS (PERF.md, section 6), so they follow it here (ROADMAP.md, "Differences by
+# design").
 registry.register("dds", "cuda_stream", _dds_cuda_can, bsr_dsd.dds)
+registry.register("dds", "cuda_cres", _dds_cres_can, bsr_cres.dds_cres)
+registry.register("dds", "cuda_gres", _dds_gres_can, bsr_cres.dds_gres)
+registry.register("dds", "cuda_qstream", _dds_q_can, bsr_qstream.dds_q)
+registry.register("dds", "cuda_ct", _dds_q_can, bsr_qstream.dds_ct)
+registry.register("dds", "cuda_qstream_vacc", _dds_q_can, functools.partial(bsr_qstream.dds_q, accum="value"))
+registry.register("dds", "cuda_qstream_kcat", _dds_q_can, functools.partial(bsr_qstream.dds_q, accum="kcat"))
+registry.register("dds", "cuda_qstream_kcat_q8", _dds_q_can, functools.partial(bsr_qstream.dds_q, accum="kcat", q=8))
 registry.register("dds", "cuda_bres", _dds_bres_can, bsr_qstream.dds_bres)
 registry.register("dds", "cuda_bres_q4", _dds_bres_can, functools.partial(bsr_qstream.dds_bres, q=4))
 registry.register("dds", "cuda_pipelined", _dds_cuda_can,
@@ -236,8 +329,10 @@ registry.register("dds", "cuda_smallblock", _dds_small_can, _dds_small)
 registry.register("dds", "jnp_fallback", _cuda_fallback_can, reference.dds)
 registry.register("dds", "torch_reference", _cpu_can, reference.dds)
 
-registry.register("sdd", "xla_dense_detour", lambda a, b, t, **kw: _dense_can(t), reference.sdd)
+registry.register("sdd", "xla_dense_detour",
+                  lambda a, b, t, schedule=None, plan=None, **kw: _dense_can(t, schedule, plan), reference.sdd)
 registry.register("sdd", "cuda_output_stationary", _sdd_cuda_can, bsr_sdd.sdd)
+registry.register("sdd", "cuda_bres", _sdd_bres_can, bsr_sdd.sdd_bres)
 registry.register("sdd", "cuda_smallblock", _sdd_small_can, _sdd_small)
 registry.register("sdd", "jnp_fallback", _cuda_fallback_can, reference.sdd)
 registry.register("sdd", "torch_reference", _cpu_can, reference.sdd)

@@ -3,22 +3,28 @@
 Port of ``sputnik_tpu/ops/registry.py``: per op, an ordered list of
 ``(can_implement, launch)`` pairs; dispatch launches the first variant that
 can implement the problem, ``variant=`` picks one by name, and a problem no
-variant takes raises ``NotImplementedError`` with the shapes. There is no
-autotune cache yet.
+variant takes raises ``NotImplementedError`` with the shapes.
 
 :func:`forced_variant` makes every dispatch inside a ``with`` block use one
 named variant, so a whole model can run on the plain versions to be
 compared with its kernels.
+
+The precedence: ``variant=``, then :func:`forced_variant`, then the
+autotune cache (``ops/autotune.py``: the tuned winner for the problem's
+signature, passed over when its ``can_implement`` refuses the problem),
+then first fit. With an empty cache no signature is computed.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import logging
 from typing import Callable, Dict, List, Optional
 
-__all__ = ["KernelVariant", "register", "dispatch", "dispatch_name", "forced_variant"]
+__all__ = ["KernelVariant", "register", "dispatch", "dispatch_name", "first_fit_name", "forced_variant",
+           "variants_for"]
 
 # Enable with logging.getLogger("sputnik_tpu_torch").setLevel(logging.DEBUG).
 log = logging.getLogger("sputnik_tpu_torch")
@@ -33,12 +39,26 @@ class KernelVariant:
 
 _REGISTRY: Dict[str, List[KernelVariant]] = {}
 _FORCED: List[str] = []  # innermost forced_variant() name last
+_AUTOTUNE = None
+
+
+def _autotune():
+    """The autotune module, imported on first dispatch (``ops`` re-exports
+    a function ``autotune`` that shadows the module's name)."""
+    global _AUTOTUNE
+    if _AUTOTUNE is None:
+        _AUTOTUNE = importlib.import_module("sputnik_tpu_torch.ops.autotune")
+    return _AUTOTUNE
 
 
 def register(op: str, name: str, can_implement, launch) -> KernelVariant:
     v = KernelVariant(name=name, can_implement=can_implement, launch=launch)
     _REGISTRY.setdefault(op, []).append(v)
     return v
+
+
+def variants_for(op: str) -> List[KernelVariant]:
+    return list(_REGISTRY.get(op, []))
 
 
 @contextlib.contextmanager
@@ -61,6 +81,22 @@ def _select(op: str, args, kwargs, variant: Optional[str] = None) -> KernelVaria
             if v.name == variant:
                 return v
         raise ValueError(f"{op}: no variant named {variant!r}")
+    tuned = _autotune().cached_variant(op, args, kwargs)
+    if tuned is not None:
+        for v in variants:
+            if v.name == tuned:
+                try:
+                    ok = v.can_implement(*args, **kwargs)
+                except Exception:
+                    ok = False
+                if ok:
+                    log.debug("%s: dispatching tuned %s", op, tuned)
+                    return v
+                break
+    return _first_fit(op, variants, args, kwargs)
+
+
+def _first_fit(op: str, variants, args, kwargs) -> KernelVariant:
     for v in variants:
         if v.can_implement(*args, **kwargs):
             if log.isEnabledFor(logging.DEBUG):
@@ -84,3 +120,9 @@ def dispatch(op: str, *args, variant: Optional[str] = None, **kwargs):
 def dispatch_name(op: str, *args, variant: Optional[str] = None, **kwargs) -> str:
     """Name of the variant :func:`dispatch` would pick, without launching."""
     return _select(op, args, kwargs, variant).name
+
+
+def first_fit_name(op: str, *args, **kwargs) -> str:
+    """Name of the first variant that can implement the problem, whatever
+    the autotune cache holds (what ``bench.dsd --no-tune`` measures)."""
+    return _first_fit(op, _REGISTRY.get(op, []), args, kwargs).name

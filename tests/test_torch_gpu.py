@@ -18,7 +18,10 @@ bsr_dsd_stream on int8, bsr_bres: against their plain versions, the
 sparse-output ops at bs 32 on both kinds of metadata, a small-block
 training step, int8 serving against the CPU, and what they refuse), and
 the pipelined DSD / DDS kernel and the three mxu probes (against their
-plain versions, run to run, and cuda_pipelined's routes).
+plain versions, run to run, and cuda_pipelined's routes), and the
+q-stream, C-resident, group-resident and input-resident SDD kernels
+(against their plain versions, run to run, their variant= routes and a
+tuned winner dispatched from a cache under tmp_path).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -29,6 +32,7 @@ no jax, so it runs on a machine that has only the port's dependencies:
 import contextlib
 import dataclasses
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -38,8 +42,8 @@ from sputnik_tpu_torch import ops, prune
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
 from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.bench import mxu_probe
-from sputnik_tpu_torch.kernels import (bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd,
-                                       reference, sell)
+from sputnik_tpu_torch.kernels import (bsr_cres, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small,
+                                       bsr_ssd, reference, sell)
 from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_attention as fa
@@ -51,6 +55,8 @@ from sputnik_tpu_torch.ops import csr as csr_ops
 from sputnik_tpu_torch.ops import quant, registry
 from sputnik_tpu_torch.utils import testing
 from sputnik_tpu_torch.utils.testing import ATOL
+
+autotune = importlib.import_module("sputnik_tpu_torch.ops.autotune")
 
 pytestmark = pytest.mark.gpu
 
@@ -1032,3 +1038,83 @@ def test_probes_match_plain(cuda, dtype):
         _held(got, want)
     assert {k: mxu_probe.LAUNCHES[k] - before[k] for k in before} == {
         "mxu_dense_stream": 6, "mxu_resident_stream": 4, "mxu_tiled_matmul": 2 * len(mxu_probe.SWEEP_CONFIGS)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ta,tb", MODES)
+def test_resident_kernels_match_plain(cuda, dtype, ta, tb):
+    """bsr_qstream (dsd_q at q 1 / 4 / 8, dds_q, dds_ct), bsr_cres and
+    bsr_gres (DSD and DDS) and bsr_sdd_bres (pack 1 and 4) against their
+    plain versions, twice bitwise equal: unordered indices, and a BSR with
+    empty block-rows, its metadata rebuilt on the card for the q-stream and
+    C-resident kernels."""
+    rng = np.random.default_rng(63)
+    m, k, n = 640, 384, 512
+    a_shape, b_shape = _dims(m, k, n, ta, tb)
+    a = testing.random_bsr(rng, *a_shape, m * k // 3, BS, unordered=True, device=cuda)
+    a = a.with_data(_randn(rng, tuple(a.data.shape), cuda, dtype))
+    b = _randn(rng, b_shape, cuda, dtype)
+    kw = dict(transpose_a=ta, transpose_b=tb)
+    want = bsr_dsd.dsd_reference(a, b, **kw)
+    for fn in (lambda: bsr_qstream.dsd_q(a, b, q=1, **kw), lambda: bsr_qstream.dsd_q(a, b, accum="kcat", **kw),
+               lambda: bsr_qstream.dsd_q(a, b, q=8, **kw), lambda: bsr_cres.dsd_cres(a, b, **kw),
+               lambda: bsr_cres.dsd_gres(a, b, **kw), lambda: bsr_cres.dsd_gres(a, b, group_rows=2, **kw)):
+        got = fn()
+        assert torch.equal(got, fn())
+        _held(got, want)
+    sp = testing.random_bsr(rng, *((n, k) if tb else (k, n)), n * k // 3, BS, unordered=True, device=cuda)
+    sp = sp.with_data(_randn(rng, tuple(sp.data.shape), cuda, dtype))
+    d = _randn(rng, (k, m) if ta else (m, k), cuda, dtype)
+    want = bsr_dsd.dds_reference(d, sp, **kw)
+    for fn in (bsr_qstream.dds_q, bsr_qstream.dds_ct, bsr_cres.dds_cres, bsr_cres.dds_gres):
+        got = fn(d, sp, **kw)
+        assert torch.equal(got, fn(d, sp, **kw))
+        _held(got, want)
+    ragged = testing.bsr_from_blocks(768, 768, [0, 0, 2, 5], [3, 0, 1, 4], rng.standard_normal((4, BS, BS)),
+                                     dtype=dtype, device=cuda)
+    card = dss_bench.card_built(ragged, False)
+    x = _randn(rng, (256, 768) if tb else (768, 256), cuda, dtype)
+    want = bsr_dsd.dsd_reference(ragged, x, **kw)
+    empty = [2] if ta else [1, 3, 4]
+    for got in (bsr_qstream.dsd_q(card, x, **kw), bsr_cres.dsd_cres(card, x, **kw), bsr_cres.dsd_gres(ragged, x, **kw)):
+        _held(got, want)
+        assert not got.reshape(6, BS, 256)[empty].any()
+    t = testing.random_bsr(rng, 384, 512, 384 * 512 // 3, BS, unordered=True, device=cuda)
+    xa = _randn(rng, (k, 384) if ta else (384, k), cuda, dtype)
+    xb = _randn(rng, (512, k) if tb else (k, 512), cuda, dtype)
+    want = reference.sdd(xa, xb, t, **kw).data
+    for pack in (1, 4):
+        got = bsr_sdd.sdd_bres(xa, xb, t, pack=pack, **kw).data
+        assert torch.equal(got, bsr_sdd.sdd_bres(xa, xb, t, pack=pack, **kw).data)
+        _held(got, want)
+
+
+def test_resident_routes_and_autotune(cuda, tmp_path, monkeypatch):
+    """Every new variant= name launches its kernel once; the first fits of
+    DSD and SDD are unchanged; a winner tuned into a cache under tmp_path
+    is dispatched, and clear_cache restores the first fit."""
+    monkeypatch.setenv("SPUTNIK_TPU_TORCH_TUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune._reset()  # read the cache from tmp_path, not the one an earlier test's dispatch loaded
+    rng = np.random.default_rng(64)
+    a = testing.random_bsr(rng, 512, 512, 512 * 512 // 4, BS, dtype=torch.bfloat16, device=cuda)
+    b = _randn(rng, (512, 512), cuda, torch.bfloat16)
+    t = testing.random_bsr(rng, 512, 512, 512 * 512 // 4, BS, dtype=torch.bfloat16, device=cuda)
+    before = (bsr_qstream.QSTREAM_LAUNCHES, dict(bsr_cres.LAUNCHES), bsr_sdd.BRES_LAUNCHES)
+    for name in ("cuda_qstream", "cuda_qstream_q2", "cuda_qstream_kcat_q8", "cuda_cres", "cuda_gres"):
+        _held(ops.matmul_dsd(a, b, variant=name), reference.dsd(a, b))
+    for name in ("cuda_ct", "cuda_qstream_vacc", "cuda_cres", "cuda_gres"):
+        _held(ops.matmul_dds(b, a, variant=name), reference.dds(b, a))
+    _held(ops.matmul_sdd(b, b, t, transpose_b=True, variant="cuda_bres").data,
+          reference.sdd(b, b, t, transpose_b=True).data)
+    assert bsr_qstream.QSTREAM_LAUNCHES - before[0] == 5 and bsr_sdd.BRES_LAUNCHES - before[2] == 1
+    assert {k: bsr_cres.LAUNCHES[k] - before[1][k] for k in before[1]} == {"bsr_cres": 2, "bsr_gres": 2}
+    assert registry.dispatch_name("dsd", a, b) == "cuda_stream"
+    assert registry.dispatch_name("sdd", b, b, t, transpose_b=True) == "cuda_output_stationary"
+    ops.autotune("dsd", a, b, timings={"cuda_gres": 1.0, "cuda_stream": 2.0})
+    assert registry.dispatch_name("dsd", a, b) == "cuda_gres"
+    gres = bsr_cres.LAUNCHES["bsr_gres"]
+    ops.matmul_dsd(a, b)
+    assert bsr_cres.LAUNCHES["bsr_gres"] == gres + 1
+    ops.clear_cache()
+    assert registry.dispatch_name("dsd", a, b) == "cuda_stream"
+    autotune._reset()

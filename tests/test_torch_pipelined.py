@@ -179,13 +179,15 @@ def test_pipelined_launcher_refuses_cpu_and_dtypes():
 
 def test_pipelined_registered_after_bres_and_first_fit_unchanged(monkeypatch, rng):
     """``cuda_pipelined`` sits where JAX's ``pallas_pipelined`` sits relative
-    to the port's variants (after the bres pair, before the small-block
+    to the port's variants (after the bres pair, and for DSD after
+    ``cuda_gres``, which JAX registers between them; before the small-block
     kernel) with the stream kernel's predicate; with the device predicates
     reporting CUDA, first fit still names ``cuda_stream`` for DSD and DDS."""
-    for op in ("dsd", "dds"):
+    for op, before in (("dsd", "cuda_gres"), ("dds", "cuda_bres_q4")):
         names = [v.name for v in registry._REGISTRY[op]]
         i = names.index("cuda_pipelined")
-        assert names[i - 1] == "cuda_bres_q4" and names[i + 1] == "cuda_smallblock"
+        assert names[i - 1] == before and names[i + 1] == "cuda_smallblock"
+        assert names.index("cuda_bres_q4") < i
         assert names.index("cuda_stream") < i
     monkeypatch.setattr(matmul_mod, "_on_cuda", lambda *xs: True)
     _, a = _pair(7, 512, 512, 0.25, "bfloat16")
