@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the sixteen CUDA libraries from csrc/ (one nvcc each,
+   versions; build the eighteen CUDA libraries from csrc/ (one nvcc each,
    all started together) and print the seconds. The run's autotune cache
    (SPUTNIK_TPU_TORCH_TUNE_CACHE) is a file in a temporary directory of
    its own, removed at the end, so that no dispatch reads a winner tuned
@@ -192,7 +192,29 @@ Phases (any failure raises and the script exits non-zero):
    the four kernels' device times beside their plain versions, bounds and
    library yardsticks, and the other schedules beside the stream kernel.
 
-The line before the last is {"kernels": [...]} (thirty kernels, each
+15. The panel-resident and column-stacked schedules and the variant tools:
+   (a) bsr_panel (DSD and DDS, all four modes) and bsr_cstack (q 4 / 8, NN
+   / NT, n_tile 256 and the default) against their plain versions, bf16 and
+   fp32, at the audit's d = 2048, 25% (unordered indices), at JAX's test
+   shapes (panel m 512, k 384, n 256; cstack m 640, k 384, n 512), on a BSR
+   with empty block-rows and an empty block-column, and for cstack on its
+   metadata rebuilt on the card: fp32 within 1e-4 * max|plain|, bf16 within
+   one bf16 ulp, every kernel twice bitwise equal; (b) cuda_panel,
+   cuda_cstack, cuda_cstack_q4, cuda_stream_at and xla_gather_bmm launch
+   their kernels exactly (xla_gather_bmm none), the first fits unchanged;
+   (c) python -m sputnik_tpu_torch.bench.tune at d = 2048 (dsd, dds, sdd,
+   NN) into the run's cache: no ERROR, three winners persisted; (d)
+   bench.headline at 4096^2, 25%: every registered DSD variant and every
+   kept extra timed, none failed, the rows written; (e) bench.grid at d =
+   2048, densities 0.25 / 0.1 (48 rows, no error row, every fraction at
+   most 1.05) and bench.grid_summary on its output, bench.sss_floor at d =
+   2048 and bench.flash_sweep; (c)-(e) are the benchmark path whose
+   launches the kernels line reports for the two kernels; (f) their device
+   times beside their plain versions, bounds and library yardsticks, and
+   panel / cstack / cres / stream / pipelined / xla_gather_bmm side by side,
+   DSD at d = 2048 and 4096, 25%.
+
+The line before the last is {"kernels": [...]} (thirty-two kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -216,16 +238,19 @@ import torch
 import torch.nn.functional as F
 
 from sputnik_tpu_torch import ops, prune
-from sputnik_tpu_torch.bench import calibrate, mxu_probe, roofline
+from sputnik_tpu_torch.bench import calibrate, flash_sweep, grid_summary, mxu_probe, roofline, sss_floor
 from sputnik_tpu_torch.bench import dlmc as dlmc_bench
 from sputnik_tpu_torch.bench import dsd as dsd_bench
 from sputnik_tpu_torch.bench import dss as dss_bench
+from sputnik_tpu_torch.bench import grid as grid_bench
+from sputnik_tpu_torch.bench import headline as headline_bench
 from sputnik_tpu_torch.bench import moe as moe_bench
 from sputnik_tpu_torch.bench import serving as serving_bench
+from sputnik_tpu_torch.bench import tune as tune_bench
 from sputnik_tpu_torch.bench.models import PEAKS
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_dense
-from sputnik_tpu_torch.kernels import (_build, bsr_cres, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd,
-                                       bsr_small, bsr_ssd, reference, sell)
+from sputnik_tpu_torch.kernels import (_build, bsr_cres, bsr_cstack, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_panel,
+                                       bsr_qstream, bsr_sdd, bsr_small, bsr_ssd, reference, sell, xla_gather)
 from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_mha as fm
@@ -502,6 +527,7 @@ def reset_launches() -> None:
     bsr_pipe.LAUNCHES = 0
     bsr_qstream.QSTREAM_LAUNCHES = bsr_sdd.BRES_LAUNCHES = 0
     bsr_cres.LAUNCHES.update(dict.fromkeys(bsr_cres.LAUNCHES, 0))
+    bsr_panel.LAUNCHES = bsr_cstack.LAUNCHES = 0
 
 
 def launch_counts() -> dict:
@@ -2768,6 +2794,226 @@ def dds_first_fit_times(rng, name_limit: str) -> None:
     print(f"  DDS first fit registered: {DDS_FIRST_FIT}", flush=True)
 
 
+# ---------------------------------------------------------------- phase 15 --
+# The panel-resident and column-stacked DSD / DDS schedules and the variant
+# tools (bench.tune, bench.headline, bench.grid, bench.grid_summary,
+# bench.sss_floor, bench.flash_sweep).
+SCHEDULES = ("bsr_panel", "bsr_cstack")
+# JAX's test shapes (tests/test_bsr_matmul.py): the panel's m 512, k 384,
+# n 256; the cstack's and cres's m 640, k 384, n 512.
+PANEL_SHAPE, CSTACK_SHAPE = (512, 384, 256), (640, 384, 512)
+
+
+def p15_counts() -> dict:
+    return {"bsr_panel": bsr_panel.LAUNCHES, "bsr_cstack": bsr_cstack.LAUNCHES}
+
+
+def schedule_cases(rng, errors) -> None:
+    """(a): bsr_panel (DSD and DDS, all four modes) and bsr_cstack (q 4 / 8,
+    NN / NT, n_tile 256 and the default) against their plain versions, bf16
+    and fp32, each twice bitwise equal: at the audit's d = 2048, 25%
+    (unordered indices), at JAX's test shapes, on a BSR with empty
+    block-rows and an empty block-column, and for cstack on that BSR's
+    metadata rebuilt on the card (the plan built there); then at the
+    contractions that reach every panel width the kernel instantiates, in
+    both dtypes (bf16: 64 at K = 384, 32 at 2048, 16 at the headline's
+    4096^2, where cstack runs too, 8 at 8192; fp32: 64 at 384, 32 at 1024,
+    16 at 2048, 8 at 4096), and fails unless each (dtype, width) was
+    launched."""
+    n_cases = 0
+    widths = set()
+    real_width = bsr_panel._panel_width
+
+    def width(in_kind, *args):
+        w = real_width(in_kind, *args)
+        widths.add((in_kind, w))
+        return w
+
+    def case(name, kname, kern, plain, dtype):
+        nonlocal n_cases
+        _p12_case(name, kname, kern, plain, dtype, errors)
+        n_cases += 1
+
+    def dsd(tag, a, n, ta, tb, dtype, variants):
+        k = a.rows if ta else a.cols
+        x = randn(rng, (n, k) if tb else (k, n), dtype)
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        for kname, label, fn in variants:
+            case(f"{kname} DSD {label} {tag} ta={ta} tb={tb} {dtype}", kname, lambda: fn(a, x, **kw),
+                 lambda: bsr_dsd.dsd_reference(a, x, **kw), dtype)
+
+    def dds(tag, b, m, ta, tb, dtype):
+        k = b.cols if tb else b.rows
+        y = randn(rng, (k, m) if ta else (m, k), dtype)
+        kw = dict(transpose_a=ta, transpose_b=tb)
+        case(f"bsr_panel DDS {tag} ta={ta} tb={tb} {dtype}", "bsr_panel", lambda: bsr_panel.dds_panel(y, b, **kw),
+             lambda: bsr_dsd.dds_reference(y, b, **kw), dtype)
+
+    panel = [("bsr_panel", "", bsr_panel.dsd_panel)]
+    cstack = [("bsr_cstack", f"q {q} n_tile {nt}", functools.partial(bsr_cstack.dsd_cstack, q=q, n_tile=nt))
+              for q in (4, 8) for nt in (256, 8192)]
+
+    def wide(m, k, n, dtype, with_cstack):
+        """Every mode at (m, k, n), 25%: DSD (with cstack, q 4 / 8) and DDS."""
+        square = rand_bsr(rng, m, k, 0.25, dtype, unordered=True) if m == k == n else None
+        for ta, tb in MODES:
+            a = square if square is not None else rand_bsr(rng, *((k, m) if ta else (m, k)), 0.25, dtype,
+                                                           unordered=True)
+            dsd(f"{m} x {k}, n {n}", a, n, ta, tb, dtype, panel + (cstack[1::2] if with_cstack and not ta else []))
+            b = square if square is not None else rand_bsr(rng, *((n, k) if tb else (k, n)), 0.25, dtype,
+                                                           unordered=True)
+            dds(f"k {k}, n {n}, m {m}", b, m, ta, tb, dtype)
+
+    bsr_panel._panel_width = width
+    try:
+        rows, cols = (0, 0, 0, 2, 2, 5, 5, 5), (3, 0, 5, 1, 4, 0, 4, 1)  # block-rows 1, 3, 4 and column 2 empty
+        pm, pk, pn = PANEL_SHAPE
+        cm, ck, cn = CSTACK_SHAPE
+        for dtype in (torch.bfloat16, f32):
+            head = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, dtype, unordered=True)
+            ragged = testing.bsr_from_blocks(768, 768, rows, cols, np.zeros((len(rows), 128, 128), np.float32),
+                                             dtype=dtype, device=DEV)
+            ragged = ragged.with_data(randn(rng, tuple(ragged.data.shape), dtype))
+            card = dss_bench.card_built(ragged, False)
+            jax_c = rand_bsr(rng, cm, ck, 0.3, dtype, unordered=True)
+            for ta, tb in MODES:
+                tag = f"{AUDIT_D}^2 25%"
+                dsd(tag, head, AUDIT_D, ta, tb, dtype, panel + ([] if ta else cstack[1:2] + cstack[3:]))
+                dds(tag, head, AUDIT_D, ta, tb, dtype)
+                jax_a = rand_bsr(rng, *((pk, pm) if ta else (pm, pk)), 0.3, dtype, unordered=True)
+                jax_b = rand_bsr(rng, *((pn, pk) if tb else (pk, pn)), 0.3, dtype, unordered=True)
+                dsd(f"{pm} x {pk}, n {pn}", jax_a, pn, ta, tb, dtype, panel)
+                dds(f"k {pk}, n {pn}, m {pm}", jax_b, pm, ta, tb, dtype)
+                dsd("ragged", ragged, 256, ta, tb, dtype, panel + ([] if ta else cstack[:1] + cstack[2:3]))
+                dds("ragged", ragged, 256, ta, tb, dtype)
+                if not ta:
+                    dsd(f"{cm} x {ck}, n {cn}", jax_c, cn, ta, tb, dtype, cstack)
+                    dsd("ragged, card-built", card, 256, ta, tb, dtype, cstack[::3])
+            del head
+        wide(4096, 4096, 4096, torch.bfloat16, True)
+        wide(1024, 8192, 512, torch.bfloat16, False)
+        wide(512, 1024, 256, f32, False)
+        wide(1024, 4096, 512, f32, False)
+    finally:
+        bsr_panel._panel_width = real_width
+    want = {(kind, w) for kind in (0, 1) for w in bsr_panel._WIDTHS}
+    check(widths == want, f"panel widths launched {sorted(widths)}, expected {sorted(want)} (0 bf16, 1 fp32)")
+    print(f"  {n_cases} cases within tolerance, each twice bitwise equal, at every panel width (dtype kind, W) "
+          f"{sorted(widths)}; max |kernel - plain| in fp32: { {k: errors.get(k) for k in SCHEDULES} }", flush=True)
+
+
+def schedule_routes(rng) -> None:
+    """(b): each new variant= name launches its kernel exactly once per
+    product (cuda_panel bsr_panel, cuda_cstack / cuda_cstack_q4 bsr_cstack,
+    cuda_stream_at bsr_dsd_stream, xla_gather_bmm no counted kernel), within
+    tolerance of the plain product; the first fits are unchanged."""
+    bf16 = torch.bfloat16
+    a = rand_bsr(rng, AUDIT_D, AUDIT_D, 0.25, bf16)
+    b = randn(rng, (AUDIT_D, AUDIT_D), bf16)
+
+    def counts():
+        return {**p15_counts(), "bsr_dsd_stream": bsr_dsd.LAUNCHES, **p14_counts(), "bsr_dsd_pipelined": bsr_pipe.LAUNCHES}
+
+    for op, args, name, kname in (("dsd", (a, b), "cuda_panel", "bsr_panel"), ("dds", (b, a), "cuda_panel", "bsr_panel"),
+                                  ("dsd", (a, b), "cuda_cstack", "bsr_cstack"),
+                                  ("dsd", (a, b), "cuda_cstack_q4", "bsr_cstack"),
+                                  ("dds", (b, a), "cuda_stream_at", "bsr_dsd_stream"),
+                                  ("dsd", (a, b), "xla_gather_bmm", None)):
+        torch.cuda.synchronize()
+        before = counts()
+        got = registry.dispatch(op, *args, variant=name)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        check(moved == ({kname: 1} if kname else {}), f"variant={name} launched {moved}")
+        want = (reference.dsd if op == "dsd" else reference.dds)(*args)
+        check(testing.bf16_ulp_excess(got, want) <= 1, f"variant={name}: more than one bf16 ulp from plain")
+    names = (registry.dispatch_name("dsd", a, b), registry.dispatch_name("dds", b, a))
+    check(names == ("cuda_stream", DDS_FIRST_FIT), f"first fit {names}")
+    print(f"  variant=: cuda_panel (DSD, DDS) -> bsr_panel, cuda_cstack / cuda_cstack_q4 -> bsr_cstack, "
+          f"cuda_stream_at -> bsr_dsd_stream, xla_gather_bmm -> no kernel; first fits {names}", flush=True)
+
+
+def variant_tools(name_limit: str, out_dir: str) -> None:
+    """(c)-(e): python -m sputnik_tpu_torch.bench.tune (d = 2048; dsd, dds,
+    sdd; NN), bench.headline (4096^2, 25%), a cut of bench.grid (d = 2048,
+    densities 0.25 / 0.1, six ops x four modes) and bench.grid_summary on
+    its output, bench.sss_floor (d = 2048) and bench.flash_sweep, each
+    through its entry point, writing under ``out_dir``; the run's tune cache
+    is cleared after tune and after headline, so that the grid measures
+    the first fit."""
+    start = time.perf_counter()
+    print(f"(c) python -m sputnik_tpu_torch.bench.tune --d {AUDIT_D} (dsd, dds, sdd, NN) on {name_limit}", flush=True)
+    tune_bench.main(["--d", str(AUDIT_D)])
+    entries = json.load(open(os.environ["SPUTNIK_TPU_TORCH_TUNE_CACHE"]))["entries"]
+    check(len(entries) == 3, f"tune persisted {entries}")
+    print(f"  winners persisted: {sorted(entries.values())} ({time.perf_counter() - start:.1f} s)", flush=True)
+    ops.clear_cache()
+    print(f"(d) python -m sputnik_tpu_torch.bench.headline (4096^2, 25%, bf16) on {name_limit}", flush=True)
+    path = os.path.join(out_dir, "headline_shootout.json")
+    headline_bench.main(["--out", path])
+    shoot = json.load(open(path))
+    a, b = dsd_bench.inputs(4096, 0.25)
+    takes = {v.name for v in registry.variants_for("dsd") if v.can_implement(a, b)} - autotune_mod.PLAIN_VARIANTS
+    timed = {r["variant"] for r in shoot["rows"]}
+    check(not shoot["failed"] and takes | set(headline_bench.EXTRAS) <= timed,
+          f"headline failed {shoot['failed']}, untimed {takes | set(headline_bench.EXTRAS) - timed}")
+    check(shoot["card"] == name_limit, f"headline names {shoot['card']}")
+    del a, b
+    ops.clear_cache()
+    print(f"  {len(timed)} rows, {len(takes)} registry variants ({time.perf_counter() - start:.1f} s)", flush=True)
+    print(f"(e) python -m sputnik_tpu_torch.bench.grid --d {AUDIT_D} --densities 0.25 0.1, then grid_summary",
+          flush=True)
+    path = os.path.join(out_dir, "bsr_grid_results.json")
+    grid_bench.main(["--d", str(AUDIT_D), "--densities", "0.25", "0.1", "--out", path])
+    rows = grid_bench.load_rows(path)
+    check(len(rows) == 48 and not [r for r in rows if "error" in r], f"grid rows {len(rows)}, errors "
+          f"{[r for r in rows if 'error' in r]}")
+    check(all(r.get("frac_sol", 0) <= grid_bench.SOL_LIMIT for r in rows), "a grid fraction above 1.05")
+    grid_summary.main(["--in", path])
+    print(f"  python -m sputnik_tpu_torch.bench.sss_floor --d {AUDIT_D}", flush=True)
+    sss_floor.main(["--d", str(AUDIT_D), "--out", os.path.join(out_dir, "sss_floor.json")])
+    print("  python -m sputnik_tpu_torch.bench.flash_sweep", flush=True)
+    flash_sweep.main(["--out", os.path.join(out_dir, "flash_sweep.json")])
+    print(f"  the tools took {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def p15_kernel_times(rng, name_limit: str) -> dict:
+    """(f): the two kernels at the audit's shape (d = 2048, 25%, bf16, NN):
+    CUDA-graph device time beside the plain version, the bound and one
+    PyTorch call computing the same function (torch.matmul on a BSR
+    tensor); then panel / cstack / cres / stream / pipelined side by side,
+    DSD at d = 2048 and 4096, 25%. Returns {kernel: (ms, plain ms, library
+    ms, bound ms, bound by)}."""
+    d, bf16 = AUDIT_D, torch.bfloat16
+    a = rand_bsr(rng, d, d, 0.25, bf16)
+    b = randn(rng, (d, d), bf16)
+    nnz = a.nnz_blocks * 128 * 128
+    nbytes, flops = nnz * 2 + 2 * d * d * 2, 2 * nnz * d
+    bsr_a = torch.sparse_bsr_tensor(a.offsets, a.indices, a.data, (d, d))
+    lib = library_call("bsr_panel", lambda: torch.matmul(bsr_a, b))
+    results = {}
+    for kname, fn in (("bsr_panel", lambda: bsr_panel.dsd_panel(a, b)), ("bsr_cstack", lambda: bsr_cstack.dsd_cstack(a, b))):
+        ms, call = time_ms(fn)
+        plain_ms, how = _library_time(lambda: bsr_dsd.dsd_reference(a, b))
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        print(f"  {kname:<10} DSD d={d} 25% NN bf16: kernel {ms * 1e3:.2f} us device ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s) / {call * 1e3:.2f} us call, plain {plain_ms * 1e3:.2f} us ({how}), library "
+              f"{lib * 1e3:.2f} us, bound {bound * 1e3:.2f} us ({by}; {bound / ms:.3f} of it) on {name_limit}",
+              flush=True)
+        results[kname] = (ms, plain_ms, lib, bound, by)
+    for dd in (AUDIT_D, 4096):
+        a = rand_bsr(rng, dd, dd, 0.25, bf16)
+        b = randn(rng, (dd, dd), bf16)
+        times = [f"{label} {time_ms(fn)[0] * 1e3:.2f}" for label, fn in (
+            ("panel", lambda: bsr_panel.dsd_panel(a, b)), ("panel DDS", lambda: bsr_panel.dds_panel(b, a)),
+            ("cstack q 8", lambda: bsr_cstack.dsd_cstack(a, b)),
+            ("cstack q 4", lambda: bsr_cstack.dsd_cstack(a, b, q=4)), ("cres", lambda: bsr_cres.dsd_cres(a, b)),
+            ("stream", lambda: bsr_dsd.dsd(a, b)), ("pipelined", lambda: PIPE_DSD(a, b)),
+            ("xla_gather_bmm", lambda: xla_gather.dsd_gather_bmm(a, b)))]
+        print(f"  DSD d={dd} 25% NN bf16, us device: {', '.join(times)} on {name_limit}", flush=True)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -2780,12 +3026,12 @@ def main() -> int:
     os.environ["SPUTNIK_TPU_TORCH_TUNE_CACHE"] = os.path.join(tune_dir, "autotune.json")
     autotune_mod._reset()  # read once per process: read it from here
     try:
-        return run_phases(name_limit)
+        return run_phases(name_limit, tune_dir)
     finally:
         shutil.rmtree(tune_dir, ignore_errors=True)
 
 
-def run_phases(name_limit: str) -> int:
+def run_phases(name_limit: str, tune_dir: str) -> int:
 
     print("== phase 1: card and build", flush=True)
     print(f"card: {name_limit}", flush=True)
@@ -2793,7 +3039,8 @@ def run_phases(name_limit: str) -> int:
     start = time.perf_counter()
     builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
               bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel, bsr_pipe._kernel,
-              mxu_probe._lib, bsr_qstream._qkernel, bsr_cres._lib, bsr_sdd._bres_kernel)
+              mxu_probe._lib, bsr_qstream._qkernel, bsr_cres._lib, bsr_sdd._bres_kernel, bsr_panel._lib,
+              bsr_cstack._kernel)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
         for built in [pool.submit(f) for f in builds]:
             built.result()
@@ -3134,6 +3381,28 @@ def run_phases(name_limit: str) -> int:
     dds_first_fit_times(np.random.default_rng(33), name_limit)
     torch.cuda.empty_cache()
 
+    print("== phase 15: the panel-resident and column-stacked schedules (bsr_panel, bsr_cstack) and the variant "
+          "tools", flush=True)
+    print(f"(a) the two kernels against their plain versions (d = {AUDIT_D}, JAX's test shapes, a ragged BSR, "
+          "card-built metadata)", flush=True)
+    schedule_cases(np.random.default_rng(40), errors)
+    torch.cuda.empty_cache()
+    print("(b) routes: every new variant= name; the first fits", flush=True)
+    schedule_routes(np.random.default_rng(42))
+    # The benchmark path, (c)-(e), as a user runs it: the counts are zero
+    # before it and read after it.
+    torch.cuda.synchronize()
+    reset_launches()
+    variant_tools(name_limit, tune_dir)
+    torch.cuda.synchronize()
+    main_launches.update(p15_counts())
+    print(f"  launches on the benchmark path: {p15_counts()}", flush=True)
+    torch.cuda.empty_cache()
+    print("(f) kernel times (CUDA-graph device time, 10 warm-up + 100 timed; library calls are yardsticks the "
+          "port never calls)", flush=True)
+    p15_times = p15_kernel_times(np.random.default_rng(41), name_limit)
+    torch.cuda.empty_cache()
+
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
     # runs of phase 8 for the FFN kernels, the fine-tune and the attention
@@ -3146,7 +3415,8 @@ def run_phases(name_limit: str) -> int:
     # probes, and the variant= / forced_variant routes of phase 13 (b) for
     # bsr_dsd_pipelined (no serving or training path reaches it: the first
     # fit keeps cuda_stream), and the benchmark path of phase 14 (c)-(e)
-    # for bsr_qstream, bsr_cres, bsr_gres and bsr_sdd_bres.
+    # for bsr_qstream, bsr_cres, bsr_gres and bsr_sdd_bres, and the
+    # benchmark path of phase 15 (c)-(e) for bsr_panel and bsr_cstack.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -3179,6 +3449,8 @@ def run_phases(name_limit: str) -> int:
         "bsr_cres": ("sputnik_tpu_torch/csrc/bsr_cres.cu", "sputnik_tpu/kernels/bsr_cres.py:58"),
         "bsr_gres": ("sputnik_tpu_torch/csrc/bsr_cres.cu", "sputnik_tpu/kernels/bsr_cres.py:367"),
         "bsr_sdd_bres": ("sputnik_tpu_torch/csrc/bsr_sdd_bres.cu", "sputnik_tpu/kernels/bsr_sdd.py:349"),
+        "bsr_panel": ("sputnik_tpu_torch/csrc/bsr_panel.cu", "sputnik_tpu/kernels/bsr_panel.py:108"),
+        "bsr_cstack": ("sputnik_tpu_torch/csrc/bsr_cstack.cu", "sputnik_tpu/kernels/bsr_cstack.py:52"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
@@ -3188,6 +3460,7 @@ def run_phases(name_limit: str) -> int:
     measured.update(p12_times)
     measured.update(p13_times)
     measured.update(p14_times)
+    measured.update(p15_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

@@ -190,11 +190,12 @@ def _check(kernel: str, sparse: BlockSparseMatrix, dense: torch.Tensor, out: tor
         raise ValueError(f"{kernel}: the dense dimension {n_cols} must be a multiple of 128")
 
 
-def _cres_ranges(row_blocks: int, n_cols: int) -> int:
-    """Block-rows per range: halve the ranges until slabs x ranges reach the
-    card's SMs (or a range is one block-row)."""
-    slabs, ranges = n_cols // _CRES_WIDTH, 1
-    while slabs * ranges < _SMS and ranges * 2 <= row_blocks:
+def split_rows(row_blocks: int, n_slabs: int) -> int:
+    """Block-rows per range of a kernel with a CTA per (column slab, row
+    range): halve the ranges until slabs x ranges reach the card's SMs (or
+    a range is one block-row)."""
+    ranges = 1
+    while n_slabs * ranges < _SMS and ranges * 2 <= row_blocks:
         ranges *= 2
     return -(-row_blocks // ranges)
 
@@ -219,7 +220,7 @@ def _cres(sparse: BlockSparseMatrix, dense: torch.Tensor, *, ts: bool, td: bool,
     acc = torch.empty((r_dim, n_cols), dtype=torch.float32, device=out.device)
     err = _lib().bsr_cres(
         sparse.data.data_ptr(), deps.data_ptr(), rows.data_ptr(), datas.data_ptr(), deps.shape[0],
-        dense.data_ptr(), acc.data_ptr(), out.data_ptr(), r_dim // 128, n_cols, _cres_ranges(r_dim // 128, n_cols),
+        dense.data_ptr(), acc.data_ptr(), out.data_ptr(), r_dim // 128, n_cols, split_rows(r_dim // 128, n_cols // _CRES_WIDTH),
         dense.stride(0), row_stride, col_stride, _KINDS[sparse.dtype], _KINDS[out_dtype], int(ts), int(td),
         torch.cuda.current_stream(out.device).cuda_stream,
     )

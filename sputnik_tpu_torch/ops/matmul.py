@@ -20,19 +20,24 @@ Pallas predicates on the port's counterpart. DSD, DDS and SDD:
      ``cuda_qstream_q2``, ``cuda_qstream_vacc``, ``cuda_qstream_kcat``,
      ``cuda_qstream_kcat_q8`` (``bsr_qstream``), ``cuda_bres`` /
      ``cuda_bres_q4`` (``bsr_bres``), ``cuda_cres`` (``bsr_cres``),
-     ``cuda_gres`` (``bsr_gres``), ``cuda_pipelined``;
+     ``cuda_cstack`` / ``cuda_cstack_q4`` (``bsr_cstack``),
+     ``xla_gather_bmm`` (a gather and one batched product, JAX's XLA
+     variant, its name kept), ``cuda_gres`` (``bsr_gres``),
+     ``cuda_panel`` (``bsr_panel``), ``cuda_pipelined``;
    * DDS: ``cuda_stream`` (first fit), ``cuda_cres``, ``cuda_gres`` (JAX
      puts these two first, cres its first fit where the accumulator fits
      its VMEM; both are slower than the stream kernel on the H100),
      ``cuda_qstream``,
      ``cuda_ct``, ``cuda_qstream_vacc``, ``cuda_qstream_kcat``,
      ``cuda_qstream_kcat_q8``, ``cuda_bres`` / ``cuda_bres_q4``,
-     ``cuda_pipelined``;
+     ``xla_gather_bmm``, ``cuda_stream_at`` (the stream kernel on A
+     restaged K-major), ``cuda_panel``, ``cuda_pipelined``;
    * SDD: ``cuda_output_stationary`` (first fit), ``cuda_bres``
      (``bsr_sdd_bres``).
 
    JAX tests concrete metadata where the port tests ``host_known``
-   (``cuda_gres``, SDD's ``cuda_bres``); the variants past the stream
+   (``cuda_gres``, ``cuda_panel`` without a ``schedule=``,
+   ``xla_gather_bmm``, SDD's ``cuda_bres``); the variants past the stream
    kernels take no batch axis, as JAX's kernels have none.
 3. ``cuda_smallblock`` — block sizes 16 / 32 / 64 with host-known metadata
    (JAX's ``_*_small_can``): the packed small-block kernels, whose plans are
@@ -83,8 +88,8 @@ import torch
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels import (
-    bsr_cres, bsr_dsd, bsr_dsd_pipelined, bsr_dss, bsr_flat, bsr_qstream, bsr_sdd, bsr_small, bsr_ssd, reference,
-    via_dense,
+    bsr_cres, bsr_cstack, bsr_dsd, bsr_dsd_pipelined, bsr_dss, bsr_flat, bsr_panel, bsr_qstream, bsr_sdd, bsr_small,
+    bsr_ssd, reference, via_dense, xla_gather,
 )
 from sputnik_tpu_torch.kernels.bsr_flat import FlatSchedule, plan_dss, plan_sparse_out, plan_sss
 from sputnik_tpu_torch.kernels.common import _PLANS, cached_plan  # noqa: F401  (_PLANS: the cache)
@@ -269,6 +274,58 @@ def _dds_gres_can(a, b, plan=None, **kw):
     return _dds_q_can(a, b, **kw) and (plan is not None or b.host_known)
 
 
+def _options(fn, *names):
+    """``fn`` taking only the options ``names`` (and the transposes and
+    out_dtype); other options meant for other variants are dropped, as the
+    JAX package's kernels drop them with ``**_``."""
+    keep = {"transpose_a", "transpose_b", "out_dtype", *names}
+    return lambda *args, **kw: fn(*args, **{k: v for k, v in kw.items() if k in keep})
+
+
+def _dsd_panel_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, schedule=None, **kw):
+    """JAX's ``_dsd_panel_can``: a full-K panel within its VMEM budget, and a
+    given schedule or metadata known on the host (JAX: concrete)."""
+    if not _dsd_q_can(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype):
+        return False
+    k_dim = a.rows if transpose_a else a.cols
+    return bsr_panel.panel_fits(k_dim, b.element_size()) and (schedule is not None or a.host_known)
+
+
+def _dds_panel_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, schedule=None, **kw):
+    if not _dds_q_can(a, b, transpose_a=transpose_a, transpose_b=transpose_b, out_dtype=out_dtype):
+        return False
+    k_dim = b.cols if transpose_b else b.rows
+    return bsr_panel.panel_fits(k_dim, a.element_size()) and (schedule is not None or b.host_known)
+
+
+def _dsd_cstack_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    """JAX's ``_dsd_cstack_can``: no transposed A, and the accumulator at a
+    128-column tile within ``ACC_BUDGET``; metadata of either kind."""
+    if transpose_a or not _dsd_q_can(a, b, transpose_b=transpose_b, out_dtype=out_dtype):
+        return False
+    return bsr_cstack.cstack_fits(a.rows, 128)
+
+
+def _dsd_gather_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    """JAX's ``_dsd_gather_can``: no transposed A, metadata known on the host."""
+    return (not transpose_a and a.host_known
+            and _dsd_q_can(a, b, transpose_b=transpose_b, out_dtype=out_dtype))
+
+
+def _dds_gather_can(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **kw):
+    """JAX's ``_dds_gather_can``: no transposed B, uniform block-columns."""
+    if transpose_b or not _dds_q_can(a, b, transpose_a=transpose_a, out_dtype=out_dtype):
+        return False
+    return xla_gather.uniform_col_width(b) is not None
+
+
+def _dds_stream_at(a, b, transpose_a=False, transpose_b=False, out_dtype=None, **_):
+    """JAX's ``_dds_stream_at``: A restaged K-major once (one transpose
+    copy), then the stream kernel with ``transpose_a``."""
+    a_t = a if transpose_a else a.transpose(-1, -2).contiguous()
+    return bsr_dsd.dds(a_t, b, transpose_a=True, transpose_b=transpose_b, out_dtype=out_dtype)
+
+
 def _sdd_bres_can(a, b, t, transpose_a=False, transpose_b=False, out_dtype=None, schedule=None, **kw):
     """JAX's ``_sdd_bres_can``: a host plan (a given ``schedule`` or
     host-known topology) and both operands within ``SDD_BRES_MAX_BYTES``."""
@@ -299,7 +356,12 @@ registry.register("dsd", "cuda_qstream_kcat_q8", _dsd_q_can, functools.partial(b
 registry.register("dsd", "cuda_bres", _dsd_bres_can, bsr_qstream.dsd_bres)
 registry.register("dsd", "cuda_bres_q4", _dsd_bres_can, functools.partial(bsr_qstream.dsd_bres, q=4))
 registry.register("dsd", "cuda_cres", _dsd_cres_can, bsr_cres.dsd_cres)
+registry.register("dsd", "cuda_cstack", _dsd_cstack_can, _options(bsr_cstack.dsd_cstack, "q", "n_tile"))
+registry.register("dsd", "cuda_cstack_q4", _dsd_cstack_can,
+                  _options(functools.partial(bsr_cstack.dsd_cstack, q=4), "q", "n_tile"))
+registry.register("dsd", "xla_gather_bmm", _dsd_gather_can, _options(xla_gather.dsd_gather_bmm))
 registry.register("dsd", "cuda_gres", _dsd_gres_can, bsr_cres.dsd_gres)
+registry.register("dsd", "cuda_panel", _dsd_panel_can, _options(bsr_panel.dsd_panel, "schedule"))
 registry.register("dsd", "cuda_pipelined", _dsd_cuda_can,
                   functools.partial(bsr_dsd.dsd, launch=bsr_dsd_pipelined.pipelined))
 registry.register("dsd", "cuda_smallblock", _dsd_small_can, _dsd_small)
@@ -323,6 +385,9 @@ registry.register("dds", "cuda_qstream_kcat", _dds_q_can, functools.partial(bsr_
 registry.register("dds", "cuda_qstream_kcat_q8", _dds_q_can, functools.partial(bsr_qstream.dds_q, accum="kcat", q=8))
 registry.register("dds", "cuda_bres", _dds_bres_can, bsr_qstream.dds_bres)
 registry.register("dds", "cuda_bres_q4", _dds_bres_can, functools.partial(bsr_qstream.dds_bres, q=4))
+registry.register("dds", "xla_gather_bmm", _dds_gather_can, _options(xla_gather.dds_gather_bmm))
+registry.register("dds", "cuda_stream_at", _dds_cuda_can, _dds_stream_at)
+registry.register("dds", "cuda_panel", _dds_panel_can, _options(bsr_panel.dds_panel, "schedule"))
 registry.register("dds", "cuda_pipelined", _dds_cuda_can,
                   functools.partial(bsr_dsd.dds, launch=bsr_dsd_pipelined.pipelined))
 registry.register("dds", "cuda_smallblock", _dds_small_can, _dds_small)
@@ -447,14 +512,6 @@ def _sds_flat(a, b, topology, *, transpose_a=False, transpose_b=False, out_dtype
                                lambda: plan_sds(b, topology, transpose_b=transpose_b))
     return bsr_flat.sds_flat(a, b, topology, transpose_a=transpose_a, transpose_b=transpose_b,
                              out_dtype=out_dtype, schedule=schedule, kcat=kcat)
-
-
-def _options(fn, *names):
-    """``fn`` taking only the options ``names`` (and the transposes and
-    out_dtype); other options meant for other variants are dropped, as the
-    JAX package's kernels drop them with ``**_``."""
-    keep = {"transpose_a", "transpose_b", "out_dtype", *names}
-    return lambda *args, **kw: fn(*args, **{k: v for k, v in kw.items() if k in keep})
 
 
 def _ssd_can(a, b, t, out_dtype=None, **kw):

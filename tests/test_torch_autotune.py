@@ -258,9 +258,9 @@ def test_bench_py_shortlist_is_jax_names():
     assert tuple(n.replace("pallas_", "cuda_") for n in names) == dsd_bench.TUNE_SHORTLIST
 
 
-@pytest.mark.parametrize("module", ["roofline"])
+@pytest.mark.parametrize("module", ["roofline", "tune", "headline", "grid", "sss_floor", "flash_sweep"])
 def test_new_entry_points_raise_without_a_card(module):
-    """``python -m sputnik_tpu_torch.bench.roofline`` exits non-zero and
+    """``python -m sputnik_tpu_torch.bench.<module>`` exits non-zero and
     prints no result on a machine without a CUDA card."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
@@ -271,8 +271,8 @@ def test_new_entry_points_raise_without_a_card(module):
 
 
 # --------------------------------------------------------------- registry --
-# Variants the port registers that the JAX package does not (cuda_bres_q4 on
-# DDS, the CPU plain version), and JAX's it does not port here (item 16).
+# The names both registries have: the port also registers cuda_bres_q4 on
+# DDS and the CPU plain version, which JAX's has not.
 def _common(jnames, tnames):
     mapped = [n.replace("pallas_", "cuda_") for n in jnames]
     return [n for n in mapped if n in tnames], [n for n in tnames if n in mapped]
@@ -294,9 +294,10 @@ def test_variant_order_matches_jax(op):
         want[i:i] = list(moved)
     assert got == want
     new = {"dsd": {"cuda_qstream", "cuda_qstream_q2", "cuda_qstream_vacc", "cuda_qstream_kcat",
-                   "cuda_qstream_kcat_q8", "cuda_cres", "cuda_gres"},
+                   "cuda_qstream_kcat_q8", "cuda_cres", "cuda_gres", "cuda_cstack", "cuda_cstack_q4",
+                   "xla_gather_bmm", "cuda_panel"},
            "dds": {"cuda_cres", "cuda_gres", "cuda_qstream", "cuda_ct", "cuda_qstream_vacc", "cuda_qstream_kcat",
-                   "cuda_qstream_kcat_q8"},
+                   "cuda_qstream_kcat_q8", "xla_gather_bmm", "cuda_stream_at", "cuda_panel"},
            "sdd": {"cuda_bres"}}[op]
     assert new <= set(got)
 

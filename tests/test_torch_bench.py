@@ -202,7 +202,8 @@ def _fractions(obj, key=""):
         yield key, obj
 
 
-@pytest.mark.parametrize("name", ["machine_peak", "mxu_probe", "tile_sweep", "bench_results"])
+@pytest.mark.parametrize("name", ["machine_peak", "mxu_probe", "tile_sweep", "bench_results", "headline_shootout",
+                                  "bsr_grid_results", "sss_floor", "flash_sweep"])
 def test_committed_results_name_the_card_and_stay_physical(name):
     with open(os.path.join(RESULTS, f"{name}.json")) as f:
         res = json.load(f)

@@ -21,7 +21,9 @@ the pipelined DSD / DDS kernel and the three mxu probes (against their
 plain versions, run to run, and cuda_pipelined's routes), and the
 q-stream, C-resident, group-resident and input-resident SDD kernels
 (against their plain versions, run to run, their variant= routes and a
-tuned winner dispatched from a cache under tmp_path).
+tuned winner dispatched from a cache under tmp_path), and the
+panel-resident and column-stacked kernels (against their plain versions,
+run to run, the new variant= routes, bench.tune and bench.headline).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -33,6 +35,7 @@ import contextlib
 import dataclasses
 import functools
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -41,9 +44,9 @@ import torch
 from sputnik_tpu_torch import ops, prune
 from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
 from sputnik_tpu_torch.bench import dss as dss_bench
-from sputnik_tpu_torch.bench import mxu_probe
-from sputnik_tpu_torch.kernels import (bsr_cres, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_qstream, bsr_sdd, bsr_small,
-                                       bsr_ssd, reference, sell)
+from sputnik_tpu_torch.bench import headline, mxu_probe, tune
+from sputnik_tpu_torch.kernels import (bsr_cres, bsr_cstack, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_panel, bsr_qstream,
+                                       bsr_sdd, bsr_small, bsr_ssd, reference, sell)
 from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_attention as fa
@@ -1117,4 +1120,109 @@ def test_resident_routes_and_autotune(cuda, tmp_path, monkeypatch):
     assert bsr_cres.LAUNCHES["bsr_gres"] == gres + 1
     ops.clear_cache()
     assert registry.dispatch_name("dsd", a, b) == "cuda_stream"
+    autotune._reset()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ta,tb", MODES)
+def test_schedule_kernels_match_plain(cuda, dtype, ta, tb):
+    """bsr_panel (DSD and DDS) and bsr_cstack (q 4 / 8, n_tile 256 and the
+    default; no transposed A) against their plain versions, twice bitwise
+    equal, at JAX's test shapes with unordered indices, and on a BSR with
+    empty block-rows and an empty block-column (cstack also on its metadata
+    rebuilt on the card); then at the contractions that give the narrow
+    panel widths (bf16: 16 at the headline's 4096^2, where cstack runs too,
+    8 at K = 8192; fp32: 32 at K = 1024, 8 at 4096)."""
+    rng = np.random.default_rng(65)
+    kw = dict(transpose_a=ta, transpose_b=tb)
+    for (m, k, n), kernels in (((512, 384, 256), [bsr_panel.dsd_panel]),
+                               ((640, 384, 512), [] if ta else [
+                                   functools.partial(bsr_cstack.dsd_cstack, q=q, n_tile=nt)
+                                   for q in (4, 8) for nt in (256, 8192)])):
+        a_shape, b_shape = _dims(m, k, n, ta, tb)
+        a = testing.random_bsr(rng, *a_shape, m * k // 3, BS, unordered=True, device=cuda)
+        a = a.with_data(_randn(rng, tuple(a.data.shape), cuda, dtype))
+        b = _randn(rng, b_shape, cuda, dtype)
+        want = bsr_dsd.dsd_reference(a, b, **kw)
+        for fn in kernels:
+            got = fn(a, b, **kw)
+            assert torch.equal(got, fn(a, b, **kw))
+            _held(got, want)
+    sp = testing.random_bsr(rng, *((256, 384) if tb else (384, 256)), 256 * 384 // 3, BS, unordered=True, device=cuda)
+    sp = sp.with_data(_randn(rng, tuple(sp.data.shape), cuda, dtype))
+    d = _randn(rng, (384, 512) if ta else (512, 384), cuda, dtype)
+    got = bsr_panel.dds_panel(d, sp, **kw)
+    assert torch.equal(got, bsr_panel.dds_panel(d, sp, **kw))
+    _held(got, bsr_dsd.dds_reference(d, sp, **kw))
+    ragged = testing.bsr_from_blocks(768, 768, [0, 0, 2, 5], [3, 0, 1, 4], rng.standard_normal((4, BS, BS)),
+                                     dtype=dtype, device=cuda)
+    x = _randn(rng, (256, 768) if tb else (768, 256), cuda, dtype)
+    want = bsr_dsd.dsd_reference(ragged, x, **kw)
+    empty = [2] if ta else [1, 3, 4]
+    outs = [bsr_panel.dsd_panel(ragged, x, **kw)]
+    if not ta:
+        outs += [bsr_cstack.dsd_cstack(ragged, x, q=4, **kw),
+                 bsr_cstack.dsd_cstack(dss_bench.card_built(ragged, False), x, **kw)]
+    for got in outs:
+        _held(got, want)
+        assert not got.reshape(6, BS, 256)[empty].any()
+    y = _randn(rng, (768, 256) if ta else (256, 768), cuda, dtype)
+    got = bsr_panel.dds_panel(y, ragged, **kw)
+    _held(got, bsr_dsd.dds_reference(y, ragged, **kw))
+    assert not got.reshape(256, 6, BS)[:, [1, 3, 4] if tb else [2, 5]].any()
+    kind = 0 if dtype == torch.bfloat16 else 1
+    wide = [((4096, 4096, 4096), 16), ((1024, 8192, 512), 8)] if kind == 0 else [((512, 1024, 256), 32),
+                                                                                   ((1024, 4096, 512), 8)]
+    for (m, k, n), width in wide:
+        assert bsr_panel._panel_width(kind, n, k, ta, tb) == width == bsr_panel._panel_width(kind, m, k, not tb, not ta)
+        a_shape, b_shape = _dims(m, k, n, ta, tb)
+        a = testing.random_bsr(rng, *a_shape, m * k // 4, BS, unordered=True, device=cuda)
+        a = a.with_data(_randn(rng, tuple(a.data.shape), cuda, dtype))
+        b = _randn(rng, b_shape, cuda, dtype)
+        want = bsr_dsd.dsd_reference(a, b, **kw)
+        kernels = [bsr_panel.dsd_panel]
+        if m == 4096 and not ta:
+            kernels += [functools.partial(bsr_cstack.dsd_cstack, q=q) for q in (4, 8)]
+        for fn in kernels:
+            got = fn(a, b, **kw)
+            assert torch.equal(got, fn(a, b, **kw))
+            _held(got, want)
+        sp = testing.random_bsr(rng, *((n, k) if tb else (k, n)), n * k // 4, BS, unordered=True, device=cuda)
+        sp = sp.with_data(_randn(rng, tuple(sp.data.shape), cuda, dtype))
+        d = _randn(rng, (k, m) if ta else (m, k), cuda, dtype)
+        got = bsr_panel.dds_panel(d, sp, **kw)
+        assert torch.equal(got, bsr_panel.dds_panel(d, sp, **kw))
+        _held(got, bsr_dsd.dds_reference(d, sp, **kw))
+
+
+def test_schedule_routes_and_tools(cuda, tmp_path, monkeypatch):
+    """Each new variant= name launches its kernel exactly once (cuda_panel
+    bsr_panel, cuda_cstack* bsr_cstack, cuda_stream_at bsr_dsd_stream,
+    xla_gather_bmm none), the first fits are unchanged, and bench.tune and
+    bench.headline run with no failure and persist into a cache under
+    tmp_path."""
+    monkeypatch.setenv("SPUTNIK_TPU_TORCH_TUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune._reset()
+    rng = np.random.default_rng(66)
+    a = testing.random_bsr(rng, 512, 512, 512 * 512 // 4, BS, dtype=torch.bfloat16, device=cuda)
+    b = _randn(rng, (512, 512), cuda, torch.bfloat16)
+
+    def counts():
+        return (bsr_panel.LAUNCHES, bsr_cstack.LAUNCHES, bsr_dsd.LAUNCHES)
+
+    for op, args, name, launched in (("dsd", (a, b), "cuda_panel", (1, 0, 0)), ("dds", (b, a), "cuda_panel", (1, 0, 0)),
+                                     ("dsd", (a, b), "cuda_cstack", (0, 1, 0)),
+                                     ("dsd", (a, b), "cuda_cstack_q4", (0, 1, 0)),
+                                     ("dds", (b, a), "cuda_stream_at", (0, 0, 1)),
+                                     ("dsd", (a, b), "xla_gather_bmm", (0, 0, 0))):
+        before = counts()
+        got = registry.dispatch(op, *args, variant=name)
+        assert tuple(x - y for x, y in zip(counts(), before)) == launched, name
+        _held(got, (reference.dsd if op == "dsd" else reference.dds)(*args))
+    assert registry.dispatch_name("dsd", a, b) == "cuda_stream" and registry.dispatch_name("dds", b, a) == "cuda_stream"
+    assert tune.run(ds=(512,), ops_=("dsd", "dds")) == 0
+    assert len(json.loads((tmp_path / "autotune.json").read_text())["entries"]) == 2
+    rows, failures = headline.run(d=512, persist=True)
+    assert not failures and {"cuda_panel", "cuda_cstack", "xla_gather_bmm", "cstack_q16"} <= {r["variant"] for r in rows}
+    autotune.clear_cache()
     autotune._reset()

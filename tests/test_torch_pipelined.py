@@ -179,11 +179,11 @@ def test_pipelined_launcher_refuses_cpu_and_dtypes():
 
 def test_pipelined_registered_after_bres_and_first_fit_unchanged(monkeypatch, rng):
     """``cuda_pipelined`` sits where JAX's ``pallas_pipelined`` sits relative
-    to the port's variants (after the bres pair, and for DSD after
-    ``cuda_gres``, which JAX registers between them; before the small-block
+    to the port's variants (after the bres pair, and right after
+    ``cuda_panel``, as JAX's follows ``pallas_panel``; before the small-block
     kernel) with the stream kernel's predicate; with the device predicates
     reporting CUDA, first fit still names ``cuda_stream`` for DSD and DDS."""
-    for op, before in (("dsd", "cuda_gres"), ("dds", "cuda_bres_q4")):
+    for op, before in (("dsd", "cuda_panel"), ("dds", "cuda_panel")):
         names = [v.name for v in registry._REGISTRY[op]]
         i = names.index("cuda_pipelined")
         assert names[i - 1] == before and names[i + 1] == "cuda_smallblock"
