@@ -6,7 +6,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the eighteen CUDA libraries from csrc/ (one nvcc each,
+   versions; build the nineteen CUDA libraries from csrc/ (one nvcc each,
    all started together) and print the seconds. The run's autotune cache
    (SPUTNIK_TPU_TORCH_TUNE_CACHE) is a file in a temporary directory of
    its own, removed at the end, so that no dispatch reads a winner tuned
@@ -214,7 +214,31 @@ Phases (any failure raises and the script exits non-zero):
    panel / cstack / cres / stream / pipelined / xla_gather_bmm side by side,
    DSD at d = 2048 and 4096, 25%.
 
-The line before the last is {"kernels": [...]} (thirty-two kernels, each
+16. The distributed slice on one card (one card cannot hold a multi-rank
+   NCCL group, so the S = 4 ranks' bodies run in turn in this process, each
+   ring step handed the band the rotation delivers): (a) flash_band_fold
+   against its plain version on every (rank, step) fold, with the state
+   carried, of ring attention over causal_block_topology(32768, window 4)
+   (9 of 16 cells padding-only), causal_block_topology(8192) and a
+   non-causal band of 8192, bf16 and fp32, d_head 128 and 64: fp32 within
+   1e-4 * max|plain|, bf16 within ATOL (p is rounded to bf16 before P V, as
+   in the flash kernels), lanes 1-127 of m / l bitwise
+   the input's, every run bitwise equal to the next; (b)
+   ring_block_sparse_attention on those rings, fused (each fold under
+   set_sync_debug_mode("error")) and unfused on the non-causal one, and
+   (c) sharded_block_sparse_attention at S = 4, fused and unfused, causal
+   and not, against single-device flash_block_attention within ATOL (the
+   fold's launches in the kernels line are (b)-(c)'s); (d) sharded_dsd,
+   sharded_dsd_ring and sharded_sdd at 4096^2, 25%, bf16, N 4096 and
+   sharded_spmm_sell, sharded_spmm_kshard and sharded_spmm on ffn_w1 at
+   90%, n 64, against the same op on one device (fp32 within 1e-4 *
+   max|ref|, bf16 within one ulp; which are bitwise equal); (e) an NCCL
+   group of one rank: every sharded op and both attention entry points
+   through the real collectives on S = 1 partitions against one device;
+   (f) the fold kernel's device time for all folds of one ring beside its
+   plain version and bound.
+
+The line before the last is {"kernels": [...]} (thirty-three kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -237,7 +261,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sputnik_tpu_torch import ops, prune
+from sputnik_tpu_torch import ops, parallel, prune
 from sputnik_tpu_torch.bench import calibrate, flash_sweep, grid_summary, mxu_probe, roofline, sss_floor
 from sputnik_tpu_torch.bench import dlmc as dlmc_bench
 from sputnik_tpu_torch.bench import dsd as dsd_bench
@@ -253,11 +277,15 @@ from sputnik_tpu_torch.kernels import (_build, bsr_cres, bsr_cstack, bsr_dsd, bs
                                        bsr_qstream, bsr_sdd, bsr_small, bsr_ssd, reference, sell, xla_gather)
 from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
+from sputnik_tpu_torch.kernels import flash_attention as fa
 from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.ops import csr as csr_ops
 from sputnik_tpu_torch.ops import quant, registry
+from sputnik_tpu_torch.parallel import attention as par_attn
+from sputnik_tpu_torch.parallel import ring_attention as par_ring
+from sputnik_tpu_torch.parallel import sharding as par_shard
 from sputnik_tpu_torch.utils import dlmc_gen, testing
 from sputnik_tpu_torch.utils.profiling import card, time_ms
 from sputnik_tpu_torch.utils.testing import ATOL
@@ -528,6 +556,7 @@ def reset_launches() -> None:
     bsr_qstream.QSTREAM_LAUNCHES = bsr_sdd.BRES_LAUNCHES = 0
     bsr_cres.LAUNCHES.update(dict.fromkeys(bsr_cres.LAUNCHES, 0))
     bsr_panel.LAUNCHES = bsr_cstack.LAUNCHES = 0
+    fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
 
 
 def launch_counts() -> dict:
@@ -3014,6 +3043,326 @@ def p15_kernel_times(rng, name_limit: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phase 16 --
+# The distributed slice on one card: ring attention and sequence-parallel
+# attention at one head of the serving model's attention (d_head 128, bf16)
+# over S = 4 bands, their band fold on the fold kernel, and the sharded
+# ops. One card cannot hold a multi-rank NCCL group (NCCL refuses two ranks
+# on one device), so the S ranks' bodies run in turn in this process, each
+# ring step handed the band the rotation delivers (the *_sequential
+# drives), and the real collective path runs at world size 1.
+RING_S, RING_DH = 4, 128
+# name: (T, window_blocks); causal. Window 4 at T 32768 leaves 10 of the 16
+# (rank, step) cells empty (padding-only folds); T 8192 full causal fills
+# every lower cell.
+RING_TOPOS = {"causal window 4, T 32768": (32768, 4), "full causal, T 8192": (8192, None)}
+RING_BAND_T = 8192  # a non-causal band (window 4) for the non-causal folds
+
+
+@contextlib.contextmanager
+def no_device_reads():
+    """A device read back to the host raises inside."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def ring_topologies(dtype) -> dict:
+    """{name: (topology, ring topology, causal)} at S = RING_S, built on the card."""
+    out = {}
+    for name, (t, window) in RING_TOPOS.items():
+        topo = attention.causal_block_topology(t, window_blocks=window, dtype=dtype, device=DEV)
+        out[name] = (topo, parallel.partition_topology_ring(topo, RING_S), True)
+    band = attention.band_topology(RING_BAND_T, 4, dtype=dtype, device=DEV)
+    out[f"band window 4, T {RING_BAND_T}"] = (band, parallel.partition_topology_ring(band, RING_S), False)
+    return out
+
+
+def ring_folds(rt, q, k, v, causal, fold):
+    """Every (rank, step) fold of one ring in order, each rank's state
+    carried from its previous step: [(i, j, inputs, state in, state out)]."""
+    s, band = rt.n_shards, rt.band_blocks
+    qs, ks, vs = (x.chunk(s) for x in (q, k, v))
+    folds = []
+    for i in range(s):
+        q_l = qs[i].contiguous()
+        state = par_attn.initial_state(q_l.shape[0], q_l.shape[1], q_l.device)
+        for r in range(s):
+            j = (i - r) % s
+            rows, cols = rt.rows[i, j], rt.cols[i, j]
+            flags = (torch.arange(rows.shape[0], dtype=torch.int32, device=DEV) < rt.valid[i, j]).to(torch.int32)
+            inputs = (q_l, ks[j].contiguous(), vs[j].contiguous(), rows, cols, flags)
+            kw = dict(bs=128, scale=q.shape[1] ** -0.5, causal=causal, row_offset_blocks=i * band,
+                      col_offset_blocks=j * band)
+            out = fold(*inputs, state, **kw)
+            folds.append((i, j, inputs, kw, state, out))
+            state = out
+    return folds
+
+
+def _fold_errors(got, want, dtype) -> tuple:
+    """(max |kernel - plain|, within bounds) over acc and lane 0 of m / l (m
+    on the rows that saw a score). fp32 within 1e-4 * max|plain|. bf16
+    inputs within ATOL, the flash kernels' bound: p is rounded to bf16
+    before P V, and where the two fp32 score sums (tensor cores against
+    torch) round a p to neighbouring bf16 values, the fp32 state differs by
+    that ulp of p times v, more than one bf16 ulp of a small state entry."""
+    (acc, m, l), (acc_p, m_p, l_p) = got, want
+    live = m_p[:, 0] > -5e29
+    pairs = [(acc, acc_p), (l[:, 0], l_p[:, 0]), (m[live, 0], m_p[live, 0])]
+    err, ok = 0.0, True
+    for x, y in pairs:
+        if not y.numel():
+            continue
+        d = float((x - y).abs().max())
+        err = max(err, d)
+        ok &= d <= (1e-4 * max(float(y.abs().max()), 1e-30) if dtype == f32 else ATOL)
+    ok &= torch.equal(m[~live, 0], m_p[~live, 0])  # rows no real score reached keep their input
+    return err, ok
+
+
+def fold_kernel_cases(rng, errors) -> None:
+    """(a): every (rank, step) fold of the two causal rings and of the
+    non-causal band ring against the plain version on the same inputs and
+    carried state (nonzero block offsets, padding-only cells); bf16 and
+    fp32, d_head 128 and 64 (bounds: _fold_errors); lanes 1-127 of m / l bitwise the input's,
+    every kernel run bitwise equal to the next."""
+    n, n_empty, worst, ulps = 0, 0, {}, 0.0
+    for dtype in (torch.bfloat16, f32):
+        topos = ring_topologies(dtype)
+        for name, (topo, rt, causal) in topos.items():
+            for dh in (RING_DH, 64):
+                if name.startswith("causal window") and (dtype == f32 or dh == 64):
+                    continue  # the 32768 ring once, in bf16 at d_head 128
+                t = topo.rows
+                q, k, v = (randn(rng, (t, dh), dtype) for _ in range(3))
+                for i, j, inputs, kw, state, out in ring_folds(rt, q, k, v, causal, fa.flash_band_fold):
+                    again = fa.flash_band_fold(*inputs, state, **kw)
+                    plain = fa.flash_band_fold_reference(*inputs, state, **kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(out, again)), f"{name}: two fold runs differ")
+                    for x, x0 in zip(out[1:], state[1:]):
+                        check(torch.equal(x[:, 1:], x0[:, 1:]), f"{name} ({i}, {j}): lanes 1-127 of m / l changed")
+                    err, ok = _fold_errors(out, plain, dtype)
+                    check(ok, f"fold {name} {dtype} dh {dh} rank {i} band {j}: kernel outside its bound of plain "
+                              f"(max |d| {err})")
+                    if dtype == f32:
+                        errors["flash_band_fold"] = max(errors.get("flash_band_fold", 0.0), err)
+                    else:
+                        ulps = max(ulps, testing.bf16_ulp_excess(out[0], plain[0]))
+                    key = f"{str(dtype).split('.')[-1]} dh {dh} {name}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    n += 1
+                    n_empty += int(not bool((inputs[5] > 0).any()))
+    print(f"  {n} folds within tolerance ({n_empty} padding-only), each twice bitwise equal, lanes 1-127 "
+          f"passed through; max |kernel - plain|: { {k: f'{v:.2e}' for k, v in worst.items()} }; bf16 acc at most "
+          f"{ulps:.1f} bf16 ulps (testing.bf16_ulp_excess) from plain", flush=True)
+
+
+def ring_attention_runs(rng) -> None:
+    """(b): ring_block_sparse_attention through the per-rank bodies for all
+    S ranks, fused on the three rings (each fold under
+    set_sync_debug_mode("error")) and unfused on the non-causal one, against
+    single-device flash_block_attention within ATOL."""
+    for name, (topo, rt, causal) in ring_topologies(torch.bfloat16).items():
+        q, k, v = (randn(rng, (topo.rows, RING_DH), torch.bfloat16) for _ in range(3))
+        want = attention.flash_block_attention(q, k, v, topo, causal=causal)
+        routes = [True] if causal else [True, False]
+        for fused in routes:
+            start = time.perf_counter()
+            with no_device_reads() if fused else contextlib.nullcontext():
+                outs = par_ring.ring_block_sparse_attention_sequential(q, k, v, rt, causal=causal, fused=fused)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            got = torch.cat(outs)
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got.float()).all()) and err <= ATOL,
+                  f"ring attention {name} fused={fused}: max |ring - single device| {err} > {ATOL}")
+            print(f"  ring {name:<26} fused={fused:d}: max |ring - flash_block_attention| {err:.2e}; one ring's "
+                  f"{RING_S * RING_S} folds {wall * 1e3:.1f} ms wall (informational)", flush=True)
+
+
+def sharded_attention_runs(rng) -> None:
+    """(c): sharded_block_sparse_attention at S = 4 through the per-rank
+    bodies, fused and unfused, causal (full causal T 8192) and not (the
+    band), against single-device flash_block_attention within ATOL. The
+    sequential drive hands every rank the whole K / V, which both
+    kv_replicated settings deliver; the gather itself runs in (e)."""
+    cases = {True: attention.causal_block_topology(8192, dtype=torch.bfloat16, device=DEV),
+             False: attention.band_topology(RING_BAND_T, 4, dtype=torch.bfloat16, device=DEV)}
+    for causal, topo in cases.items():
+        st = parallel.partition_topology_rows(topo, RING_S)
+        q, k, v = (randn(rng, (topo.rows, RING_DH), torch.bfloat16) for _ in range(3))
+        want = attention.flash_block_attention(q, k, v, topo, causal=causal)
+        for fused in (True, False):
+            with no_device_reads() if fused else contextlib.nullcontext():
+                got = torch.cat(par_attn.sharded_block_sparse_attention_sequential(q, k, v, st, causal=causal,
+                                                                                   fused=fused))
+            err = float((got.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(got.float()).all()) and err <= ATOL,
+                  f"sharded attention causal={causal} fused={fused}: {err} > {ATOL}")
+            print(f"  sharded attention S={RING_S} causal={causal:d} fused={fused:d}: max |sharded - single| "
+                  f"{err:.2e}", flush=True)
+
+
+def _agree(name, got, want, dtype) -> bool:
+    """Within fp32 1e-4 * max|want| or one bf16 ulp; returns whether bitwise equal."""
+    check(got.shape == want.shape and bool(torch.isfinite(got.float()).all()), f"{name}: shape or non-finite")
+    if dtype == f32:
+        err = float((got - want).abs().max())
+        check(err <= 1e-4 * float(want.abs().max()), f"{name}: {err} > 1e-4 * max|single device|")
+    else:
+        check(testing.bf16_ulp_excess(got, want) <= 1, f"{name}: more than one bf16 ulp from single device")
+    return torch.equal(got, want)
+
+
+def _real_blocks(outs, st) -> torch.Tensor:
+    """The shards' SDD blocks without their padding slots, in global order."""
+    return torch.cat([o.data[:n] for o, n in zip(outs, st.valid_counts.tolist())])
+
+
+def sharded_op_runs(rng) -> None:
+    """(d): the sharded ops at S = 4 through the per-rank bodies against the
+    same op on one device: the BSR ops at the headline (4096^2, 25%, bf16,
+    N = 4096), the SELL / CSR ops on the trained ffn_w1 at 90%, n = 64,
+    fp32."""
+    bf16 = torch.bfloat16
+    a = rand_bsr(rng, 4096, 4096, 0.25, bf16)
+    b = randn(rng, (4096, 4096), bf16)
+    single = bsr_dsd.dsd(a, b)
+    x = randn(rng, (4096, 4096), bf16)
+    st = parallel.partition_bsr_rows(a, RING_S)
+    bitwise = {}
+    runs = {
+        "sharded_dsd": (lambda: torch.cat(par_shard.sharded_dsd_sequential(parallel.partition_bsr_rows(a, RING_S), b)),
+                        single, bf16),
+        "sharded_dsd_ring": (lambda: torch.cat(par_shard.sharded_dsd_ring_sequential(
+            parallel.partition_bsr_rows_kbands(a, RING_S), b)), single, bf16),
+        "sharded_sdd": (lambda: _real_blocks(par_shard.sharded_sdd_sequential(x, b, st), st),
+                        bsr_sdd.sdd(x, b, a).data, bf16),
+    }
+    w90 = dlmc_gen.magnitude_prune(dlmc_gen.load_weights(WEIGHTS)["ffn_w1"], 0.9)
+    c = csr_from_dense(w90, device=DEV)
+    bc = randn(rng, (c.cols, CSR_N), f32)
+    sell_single = sell.spmm(SellMatrix.from_csr(c), bc)
+    runs.update({
+        "sharded_spmm_sell": (lambda: torch.cat(par_shard.sharded_spmm_sell_sequential(
+            parallel.partition_sell_rows(c, RING_S), bc)), sell_single, f32),
+        "sharded_spmm_kshard": (lambda: torch.cat(par_shard.sharded_spmm_kshard_sequential(
+            parallel.partition_sell_cols(c, RING_S), bc)), sell_single, f32),
+        "sharded_spmm": (lambda: torch.cat(par_shard.sharded_spmm_sequential(
+            parallel.partition_csr_rows(c, RING_S), bc)), csr_ops.spmm(c, bc), f32),
+    })
+    for name, (run, want, dtype) in runs.items():
+        bitwise[name] = _agree(name, run(), want, dtype)
+    print(f"  the six sharded ops at S={RING_S} agree with one device; bitwise equal: {bitwise}", flush=True)
+
+
+def world_size_one(rng) -> None:
+    """(e): every sharded op and both attention entry points through a real
+    NCCL group of one rank (a FileStore in a temporary directory) on S = 1
+    partitions, against the same op on one device; the group is destroyed
+    at the end."""
+    import torch.distributed as dist
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one process on one host
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}", rank=0, world_size=1)
+    try:
+        bf16 = torch.bfloat16
+        a = rand_bsr(rng, 2048, 2048, 0.25, bf16)
+        b = randn(rng, (2048, 1024), bf16)
+        xs, ys = randn(rng, (2048, 512), bf16), randn(rng, (512, 2048), bf16)
+        c = csr_from_dense(dlmc_gen.magnitude_prune(dlmc_gen.load_weights(WEIGHTS)["ffn_w1"], 0.9), device=DEV)
+        bc = randn(rng, (c.cols, CSR_N), f32)
+        topo = attention.causal_block_topology(8192, window_blocks=4, dtype=bf16, device=DEV)
+        band = attention.band_topology(RING_BAND_T, 4, dtype=bf16, device=DEV)
+        q, k, v = (randn(rng, (8192, RING_DH), bf16) for _ in range(3))
+        sell_single = sell.spmm(SellMatrix.from_csr(c), bc)
+        ops_ = {
+            "sharded_dsd": (lambda: parallel.sharded_dsd(parallel.partition_bsr_rows(a, 1), b), bsr_dsd.dsd(a, b),
+                            bf16),
+            "sharded_dsd(b_sharded_k)": (lambda: parallel.sharded_dsd(parallel.partition_bsr_rows(a, 1), b,
+                                                                      b_sharded_k=True), bsr_dsd.dsd(a, b), bf16),
+            "sharded_dsd_ring": (lambda: parallel.sharded_dsd_ring(parallel.partition_bsr_rows_kbands(a, 1), b),
+                                 bsr_dsd.dsd(a, b), bf16),
+            "sharded_sdd": (lambda: parallel.sharded_sdd(xs, ys, parallel.partition_bsr_rows(a, 1)).data,
+                            bsr_sdd.sdd(xs, ys, a).data, bf16),
+            "sharded_spmm_sell": (lambda: parallel.sharded_spmm_sell(parallel.partition_sell_rows(c, 1), bc),
+                                  sell_single, f32),
+            "sharded_spmm_sell(b_sharded_k)": (lambda: parallel.sharded_spmm_sell(
+                parallel.partition_sell_rows(c, 1), bc, b_sharded_k=True), sell_single, f32),
+            "sharded_spmm_kshard": (lambda: parallel.sharded_spmm_kshard(parallel.partition_sell_cols(c, 1), bc),
+                                    sell_single, f32),
+            "sharded_spmm": (lambda: parallel.sharded_spmm(parallel.partition_csr_rows(c, 1), bc),
+                             csr_ops.spmm(c, bc), f32),
+        }
+        bitwise = {name: _agree(name, run(), want, dtype) for name, (run, want, dtype) in ops_.items()}
+        attn_err = {}
+        for tname, t_, causal in (("causal", topo, True), ("band", band, False)):
+            want = attention.flash_block_attention(q, k, v, t_, causal=causal)
+            st, rt = parallel.partition_topology_rows(t_, 1), parallel.partition_topology_ring(t_, 1)
+            runs = {f"ring fused {tname}": lambda: parallel.ring_block_sparse_attention(q, k, v, rt, causal=causal)}
+            if not causal:
+                runs[f"ring unfused {tname}"] = lambda: parallel.ring_block_sparse_attention(q, k, v, rt, fused=False)
+            for fused in (True, False):
+                for rep in (True, False):
+                    runs[f"sharded fused={fused:d} kv_replicated={rep:d} {tname}"] = functools.partial(
+                        parallel.sharded_block_sparse_attention, q, k, v, st, kv_replicated=rep, causal=causal,
+                        fused=fused)
+            for name, run in runs.items():
+                err = float((run().float() - want.float()).abs().max())
+                check(err <= ATOL, f"world size 1: {name} differs from single-device attention by {err}")
+                attn_err[name] = f"{err:.1e}"
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print(f"  NCCL world size 1: the sharded ops agree with one device (bitwise: {bitwise}); attention max |d| "
+          f"against flash_block_attention: {attn_err}", flush=True)
+
+
+def fold_kernel_times(rng, name_limit: str) -> dict:
+    """(f): the fold kernel's CUDA-graph device time for all S x S folds of
+    one ring, beside the plain version and the bound (the bytes of q, the
+    distinct K and V blocks the real slots touch, acc read and written in
+    fp32 and lane 0 of m and l read and written, against 4 * real slots *
+    bs^2 * dh operations at the bf16 rate); no library call computes the
+    unnormalized state. Returns the 32768-token ring's numbers."""
+    result = None
+    for name, (topo, rt, causal) in ring_topologies(torch.bfloat16).items():
+        if not causal:
+            continue
+        q, k, v = (randn(rng, (topo.rows, RING_DH), torch.bfloat16) for _ in range(3))
+        folds = ring_folds(rt, q, k, v, causal, fa.flash_band_fold)
+        nbytes = flops = 0
+        for _, _, (q_l, _, _, rows, cols, flags), _, _, _ in folds:
+            real = flags > 0
+            t_l, dh = q_l.shape
+            n_real = int(real.sum())
+            kv_blocks = int(torch.unique(cols[real]).numel())
+            nbytes += t_l * dh * 2 + 2 * kv_blocks * 128 * dh * 2 + 2 * t_l * dh * 4 + 2 * 2 * t_l * 4
+            flops += 4 * n_real * 128 * 128 * dh
+
+        def run(fn):
+            return lambda: [fn(*inputs, state, **kw) for _, _, inputs, kw, state, _ in folds]
+
+        ms, call = time_ms(run(fa.flash_band_fold))
+        plain_ms = time_ms_eager(run(fa.flash_band_fold_reference))  # it reads the slot count back
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        print(f"  flash_band_fold {name:<26} {len(folds)} folds, bf16, d_head {RING_DH}: kernel {ms * 1e3:.2f} us "
+              f"device ({flops / ms / 1e9:.1f} TFLOP/s) / {call * 1e3:.2f} us call, plain {plain_ms * 1e3:.2f} us "
+              f"(eager), bound {bound * 1e3:.2f} us ({by}; {bound / ms:.3f} of it), library: none on {name_limit}",
+              flush=True)
+        if result is None:
+            result = (ms, plain_ms, None, bound, by)
+    return {"flash_band_fold": result}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false")
@@ -3040,7 +3389,7 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
               bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel, bsr_pipe._kernel,
               mxu_probe._lib, bsr_qstream._qkernel, bsr_cres._lib, bsr_sdd._bres_kernel, bsr_panel._lib,
-              bsr_cstack._kernel)
+              bsr_cstack._kernel, fa._fold_lib)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
         for built in [pool.submit(f) for f in builds]:
             built.result()
@@ -3403,6 +3752,35 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     p15_times = p15_kernel_times(np.random.default_rng(41), name_limit)
     torch.cuda.empty_cache()
 
+    print(f"== phase 16: the distributed slice on one card: ring and sequence-parallel attention (one head, "
+          f"d_head {RING_DH}, bf16, S = {RING_S}) and the sharded ops", flush=True)
+    print("(a) flash_band_fold against its plain version: every (rank, step) fold of the rings", flush=True)
+    fold_kernel_cases(np.random.default_rng(50), errors)
+    torch.cuda.empty_cache()
+    # The distributed path, (b)-(c), through the per-rank bodies: the counts
+    # are zero before it and read after it.
+    torch.cuda.synchronize()
+    reset_launches()
+    print("(b) ring_block_sparse_attention, all ranks' bodies in turn, against flash_block_attention", flush=True)
+    ring_attention_runs(np.random.default_rng(51))
+    print("(c) sharded_block_sparse_attention at S = 4, against flash_block_attention", flush=True)
+    sharded_attention_runs(np.random.default_rng(52))
+    torch.cuda.synchronize()
+    main_launches["flash_band_fold"] = fa.LAUNCHES["flash_band_fold"]
+    print(f"  launches on the distributed path: {dict(fa.LAUNCHES)}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"(d) the sharded ops at S = {RING_S} against one device (4096^2, 25%, bf16, N 4096; ffn_w1 at 90%, "
+          f"n {CSR_N}, fp32)", flush=True)
+    sharded_op_runs(np.random.default_rng(53))
+    torch.cuda.empty_cache()
+    print("(e) the collective path: an NCCL group of one rank, S = 1 partitions", flush=True)
+    world_size_one(np.random.default_rng(54))
+    torch.cuda.empty_cache()
+    print("(f) fold kernel times (CUDA-graph device time, 10 warm-up + 100 timed, all folds of one ring)",
+          flush=True)
+    p16_times = fold_kernel_times(np.random.default_rng(55), name_limit)
+    torch.cuda.empty_cache()
+
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
     # runs of phase 8 for the FFN kernels, the fine-tune and the attention
@@ -3416,7 +3794,9 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     # bsr_dsd_pipelined (no serving or training path reaches it: the first
     # fit keeps cuda_stream), and the benchmark path of phase 14 (c)-(e)
     # for bsr_qstream, bsr_cres, bsr_gres and bsr_sdd_bres, and the
-    # benchmark path of phase 15 (c)-(e) for bsr_panel and bsr_cstack.
+    # benchmark path of phase 15 (c)-(e) for bsr_panel and bsr_cstack, and
+    # the ring and sequence-parallel attention of phase 16 (b)-(c) for
+    # flash_band_fold.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -3451,6 +3831,7 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
         "bsr_sdd_bres": ("sputnik_tpu_torch/csrc/bsr_sdd_bres.cu", "sputnik_tpu/kernels/bsr_sdd.py:349"),
         "bsr_panel": ("sputnik_tpu_torch/csrc/bsr_panel.cu", "sputnik_tpu/kernels/bsr_panel.py:108"),
         "bsr_cstack": ("sputnik_tpu_torch/csrc/bsr_cstack.cu", "sputnik_tpu/kernels/bsr_cstack.py:52"),
+        "flash_band_fold": ("sputnik_tpu_torch/csrc/flash_fold.cu", "sputnik_tpu/kernels/flash_attention.py:418"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
@@ -3461,6 +3842,7 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     measured.update(p13_times)
     measured.update(p14_times)
     measured.update(p15_times)
+    measured.update(p16_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

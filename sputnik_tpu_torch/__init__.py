@@ -29,17 +29,23 @@ stream kernel's int8 mode and one more (``csrc/bsr_bres.cu``, q blocks per
 step); the benchmark tools (``bench``: the headline with its tune pass,
 calibration, the MXU probes on three more, the roofline audit) and the
 autotune cache (``ops.autotune``, versioned by ``__version__``); the other
-DSD / DDS / SDD schedules on five more (``csrc/bsr_dsd_pipelined.cu``,
+DSD / DDS / SDD schedules on seven more (``csrc/bsr_dsd_pipelined.cu``,
 ``csrc/bsr_qstream.cu``, ``csrc/bsr_cres.cu``: contraction-major with the
-accumulator kept to one flush, whole-output or per group, and
-``csrc/bsr_sdd_bres.cu``).
+accumulator kept to one flush, whole-output or per group,
+``csrc/bsr_sdd_bres.cu``, ``csrc/bsr_panel.cu`` and ``csrc/bsr_cstack.cu``)
+and the variant tools (``bench.tune``, ``headline``, ``grid``,
+``grid_summary``, ``sss_floor``, ``flash_sweep``); the distributed layer
+(``parallel``: the row-, K-band- and column-partitioned BSR / CSR / SELL
+matmuls, sequence-parallel and ring block-sparse attention over a
+``torch.distributed`` process group) with ring attention's band fold on
+the last one (``csrc/flash_fold.cu``).
 Entry points build on the CUDA card unless given ``device="cpu"``. It
 imports torch and never jax.
 """
 
-__version__ = "0.9.0"
+__version__ = "0.10.0"
 
-from sputnik_tpu_torch import models, ops  # noqa: E402
+from sputnik_tpu_torch import models, ops, prune  # noqa: E402
 from sputnik_tpu_torch.formats import (  # noqa: E402
     BlockSparseMatrix,
     CsrMatrix,
@@ -56,7 +62,7 @@ from sputnik_tpu_torch.ops import (  # noqa: E402
 )
 
 __all__ = [
-    "BlockSparseMatrix", "bsr_from_dense", "bsr_to_dense", "models", "ops", "matmul",
+    "BlockSparseMatrix", "bsr_from_dense", "bsr_to_dense", "models", "ops", "prune", "matmul",
     "matmul_dsd", "matmul_dds", "matmul_sdd", "matmul_ssd", "matmul_sds", "matmul_dss", "matmul_sss",
     "CsrMatrix", "EllMatrix", "SellMatrix", "csr_from_dense", "csr_to_dense", "sorted_row_swizzle",
 ]

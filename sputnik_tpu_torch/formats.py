@@ -428,8 +428,8 @@ class CsrMatrix:
     :meth:`with_dense_mirror`) keeps a dense copy beside the sparse arrays
     for static matrices, so that SpMM becomes one dense matmul; the sparse
     arrays stay the source of truth. ``max_row_nnz`` is a host hint from
-    numpy or CPU offsets (``None`` when they were built on the card), read
-    by the deterministic row reductions of ``ops.csr``.
+    numpy or CPU offsets (``None`` when they were built on the card); no op
+    of ``ops.csr`` needs it.
     """
 
     values: torch.Tensor  # (nnz,)

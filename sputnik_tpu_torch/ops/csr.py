@@ -13,10 +13,12 @@ Dispatch by format, as in the JAX package:
 * an ``EllMatrix`` goes to the plain ELL functions (``spmm_ell`` and
   relatives), which JAX also computes outside Pallas.
 
-Raw-CSR ``sddmm`` and ``sparse_softmax`` are plain torch, as in JAX. Their
-row reductions are deterministic: no ``scatter_reduce`` or ``index_add_``
-atomics, but a padded ``(rows, max_row_nnz)`` layout reduced along its rows
-(the way ``ops/softmax.py`` reduces BSR rows).
+Raw-CSR ``sddmm`` and ``sparse_softmax`` are plain torch, as in JAX. The
+softmax's row reductions are ``torch.segment_reduce`` over the offsets
+(the way ``ops/softmax.py`` reduces BSR rows): each row in order, no
+``scatter_reduce`` / ``index_add_`` atomics, and no ``max_row_nnz`` hint,
+so offsets built on the card (``CsrMatrix.transpose()`` of a card matrix)
+work as host-built ones do.
 
 Gradients flow to the sparse values and to the dense operands; the topology
 (indices, counts, permutation) carries none, and padding slots get zero
@@ -246,21 +248,6 @@ def sparse_softmax_sell(a: SellMatrix, *, scale: Optional[float] = None,
     return a.with_values(_SellSoftmax.apply(a.values, a, scale))
 
 
-def _row_slots(a: CsrMatrix):
-    """(slots, valid): ``(rows, max_row_nnz)`` positions of each row's
-    entries, and which of them are real."""
-    if a.max_row_nnz is None:
-        raise ValueError(
-            "the CSR row reductions need the max_row_nnz hint; offsets built on a CUDA "
-            "device have none unless CsrMatrix.create is given it"
-        )
-    width = max(a.max_row_nnz, 1)
-    starts = a.offsets[:-1].long()
-    slots = starts[:, None] + torch.arange(width, device=a.offsets.device)[None, :]
-    valid = slots < a.offsets[1:].long()[:, None]
-    return slots.clamp(max=max(a.nnz - 1, 0)), valid
-
-
 def sparse_softmax(a: Sparse, *, scale: Optional[float] = None, variant: Optional[str] = None):
     """Row-wise softmax over the nonzero values (upstream ``SparseSoftmax``),
     numerically stable by the row max. Padding entries of a CSR take part
@@ -275,10 +262,12 @@ def sparse_softmax(a: Sparse, *, scale: Optional[float] = None, variant: Optiona
     if scale is not None:
         v = v * scale
     rows = a.row_indices.long()
-    slots, valid = _row_slots(a)
-    row_max = v[slots].masked_fill(~valid, float("-inf")).amax(dim=1)
+    # The max only keeps exp finite: the result does not depend on it, so
+    # no gradient flows through it. Empty rows reduce to -inf / 0 and are
+    # never read.
+    row_max = torch.segment_reduce(v.detach(), "max", offsets=a.offsets, unsafe=True)
     v = torch.exp(v - row_max[rows])
-    row_sum = v[slots].masked_fill(~valid, 0.0).sum(dim=1)
+    row_sum = torch.segment_reduce(v, "sum", offsets=a.offsets, unsafe=True)
     return a.with_values((v / row_sum[rows]).to(a.dtype))
 
 

@@ -3,11 +3,20 @@
 Port of ``sputnik_tpu/utils/testing.py``. The generators draw from a numpy
 ``Generator`` in exactly the same order as the JAX package's, so the same
 seed gives both packages identical topologies and values.
+
+:func:`run_spmd` runs a function on every rank of a gloo process group on
+the CPU (the JAX package's tests use an 8-device CPU mesh instead), and
+:func:`parallel_cases` is the rank body the port's distributed tests hand
+it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+import pickle
+import shutil
+import tempfile
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,7 +26,7 @@ from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "random_csr_topology", "random_csr", "random_bsr", "random_bsr_topology",
-    "bsr_from_blocks", "dense_oracle_matmul", "bf16_ulp_excess", "ATOL",
+    "bsr_from_blocks", "dense_oracle_matmul", "bf16_ulp_excess", "ATOL", "run_spmd", "parallel_cases",
 ]
 
 ATOL = 5e-2  # the reference's NanSensitiveFloatNear tolerance
@@ -174,3 +183,70 @@ def dense_oracle_matmul(a, b, *, transpose_a: bool = False, transpose_b: bool = 
     if transpose_b:
         b64 = b64.T
     return a64 @ b64
+
+
+# ------------------------------------------------------ process groups --
+def _spmd_entry(rank: int, world: int, tmp: str, fn: Callable, args: tuple) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # the tests hold a one-process drive to these results bitwise
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'store')}", rank=rank,
+                            world_size=world)
+    try:
+        out = fn(*args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_spmd(fn: Callable, world_size: int, *args) -> list:
+    """``fn(*args)`` on each rank of a ``world_size``-rank gloo group on the
+    CPU, one spawned process per rank, joined through a file store in a
+    temporary directory (no TCP port); returns each rank's result, in rank
+    order. Spawning pickles ``fn`` by reference: it must be a top-level
+    function of an importable module (not of a test file). Results should
+    be numpy or plain Python."""
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="sputnik_spmd_")
+    try:
+        mp.start_processes(_spmd_entry, args=(world_size, tmp, fn, args), nprocs=world_size, join=True,
+                           start_method="spawn")
+        results = []
+        for r in range(world_size):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _to_numpy(x):
+    from sputnik_tpu_torch.formats import BlockSparseMatrix
+
+    if isinstance(x, BlockSparseMatrix):
+        x = x.data
+    return x.detach().float().numpy() if x.dtype == torch.bfloat16 else x.detach().numpy()
+
+
+def parallel_cases(cases: Sequence[tuple]) -> list:
+    """Rank body for :func:`run_spmd`: run each ``(op, args, kwargs,
+    sharded)`` on this rank, where ``op`` names a function of
+    ``sputnik_tpu_torch.parallel`` and ``sharded`` the positions of ``args``
+    that hold a whole dense operand, of which this rank takes its row band
+    (``chunk(world)[rank]``). Returns each case's local output as numpy (a
+    sparse output's block data), or ``("raised", type name, message)``."""
+    import torch.distributed as dist
+
+    from sputnik_tpu_torch import parallel
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = []
+    for op, args, kwargs, sharded in cases:
+        args = [x.chunk(world)[rank].contiguous() if i in sharded else x for i, x in enumerate(args)]
+        try:
+            out.append(_to_numpy(getattr(parallel, op)(*args, **kwargs)))
+        except ValueError as e:
+            out.append(("raised", type(e).__name__, str(e)))
+    return out

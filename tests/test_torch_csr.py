@@ -325,3 +325,31 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     # Given a device, they build there; a tensor keeps its own device.
     assert formats.csr_from_dense(x, device="cpu").device.type == "cpu"
     assert formats.SellMatrix.from_csr(formats.csr_from_dense(torch.from_numpy(x))).device.type == "cpu"
+
+
+@pytest.mark.parametrize("empty_row", [False, True])
+def test_sparse_softmax_without_hint_matches_jax(empty_row):
+    """The raw-CSR softmax needs no max_row_nnz hint (offsets built on the
+    card carry none): the hint dropped, it matches JAX's segment max / sum
+    at softmax tolerance, an empty row included, and its gradient flows."""
+    jm, tm = _pair(31, 192, 160, 0.08, pad_rows_to=2)
+    if empty_row:  # row 5 loses its entries
+        offs = np.asarray(jm.offsets)
+        keep = np.ones(jm.nnz, bool)
+        keep[offs[5]:offs[6]] = False
+        counts = np.diff(offs)
+        counts[5] = 0
+        new_offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        vals, idx = np.asarray(jm.values)[keep], np.asarray(jm.indices)[keep]
+        jm = jformats.CsrMatrix.create(jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(new_offs), jm.shape)
+        tm = formats.CsrMatrix.create(torch.from_numpy(vals), idx, new_offs, tm.shape)
+    tm = dataclasses.replace(tm, max_row_nnz=None)
+    values = tm.values.clone().requires_grad_()
+    got = csr.sparse_softmax(tm.with_values(values), scale=0.5).values
+    want = np.asarray(jcsr.sparse_softmax(jm, scale=0.5).values)
+    assert np.isfinite(_np(got)).all()
+    np.testing.assert_allclose(_np(got), want, atol=1e-5, rtol=1e-5)
+    got.sum().backward()
+    assert torch.isfinite(values.grad).all()
+    np.testing.assert_allclose(_np(csr.sparse_softmax(tm.transpose()).values),
+                               np.asarray(jcsr.sparse_softmax(jm.transpose()).values), atol=1e-5, rtol=1e-5)

@@ -23,7 +23,10 @@ q-stream, C-resident, group-resident and input-resident SDD kernels
 (against their plain versions, run to run, their variant= routes and a
 tuned winner dispatched from a cache under tmp_path), and the
 panel-resident and column-stacked kernels (against their plain versions,
-run to run, the new variant= routes, bench.tune and bench.headline).
+run to run, the new variant= routes, bench.tune and bench.headline), and
+the distributed slice (the band fold kernel on every fold of a ring against
+its plain version, ring and sequence-parallel attention through the
+per-rank bodies, and the raw-CSR softmax of a transpose built on the card).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -1226,3 +1229,110 @@ def test_schedule_routes_and_tools(cuda, tmp_path, monkeypatch):
     assert not failures and {"cuda_panel", "cuda_cstack", "xla_gather_bmm", "cstack_q16"} <= {r["variant"] for r in rows}
     autotune.clear_cache()
     autotune._reset()
+
+
+# ------------------------------------------------------- distributed slice --
+def _ring(topo, s=4):
+    from sputnik_tpu_torch import parallel
+
+    return parallel.partition_topology_ring(topo, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fold_kernel_matches_plain(cuda, dtype, dh, causal):
+    """Every (rank, step) fold of a 4-band ring, the state carried, against
+    the plain version (fp32 within 1e-4 * max|plain|; bf16 inputs within
+    ATOL, the flash kernels' bound, since p is rounded to bf16 before P V):
+    padding-only cells, nonzero block offsets, lanes 1-127 of m / l passed
+    through, rows without a real slot kept, twice bitwise equal, and no
+    read back from the card."""
+    from sputnik_tpu_torch.parallel import attention as pattn
+
+    rng = np.random.default_rng(70 + dh)
+    t = 4096
+    topo = (attention.causal_block_topology(t, window_blocks=4, dtype=dtype, device=cuda) if causal
+            else attention.band_topology(t, 3, dtype=dtype, device=cuda))
+    rt = _ring(topo)
+    q, k, v = (_randn(rng, (t, dh), cuda, dtype) for _ in range(3))
+    qs, ks, vs = q.chunk(4), k.chunk(4), v.chunk(4)
+    empty = 0
+    for i in range(4):
+        state = pattn.initial_state(t // 4, dh, cuda)
+        for r in range(4):
+            j = (i - r) % 4
+            flags = (torch.arange(rt.rows.shape[-1], device=cuda) < rt.valid[i, j]).to(torch.int32)
+            args = (qs[i].contiguous(), ks[j].contiguous(), vs[j].contiguous(), rt.rows[i, j], rt.cols[i, j], flags)
+            kw = dict(bs=BS, scale=dh ** -0.5, causal=causal, row_offset_blocks=i * rt.band_blocks,
+                      col_offset_blocks=j * rt.band_blocks)
+            before = fa.LAUNCHES["flash_band_fold"]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fa.flash_band_fold(*args, state, **kw)
+                again = fa.flash_band_fold(*args, state, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert fa.LAUNCHES["flash_band_fold"] == before + 2
+            want = fa.flash_band_fold_reference(*args, state, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+            live = want[1][:, 0] > -5e29
+            for x, y in ((got[0], want[0]), (got[2][:, 0], want[2][:, 0]), (got[1][live, 0], want[1][live, 0])):
+                bound = 1e-4 * max(float(y.abs().max()), 1e-30) if dtype == torch.float32 else ATOL
+                assert float((x - y).abs().max()) <= bound
+            for x, x0 in zip(got[1:], state[1:]):
+                assert torch.equal(x[:, 1:], x0[:, 1:])
+            empty += int(int(rt.valid[i, j]) == 0)
+            state = got
+    assert empty > 0 or not causal  # the window leaves padding-only cells
+
+
+def test_fold_kernel_refuses(cuda):
+    state = tuple(torch.zeros(256, w, device=cuda) for w in (24, 128, 128))
+    x = torch.zeros(256, 24, device=cuda)
+    slots = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="flash_band_fold: head dim"):
+        fa.flash_band_fold(x, x, x, slots, slots, slots, state, bs=BS, scale=1.0)
+    y = torch.zeros(256, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="flash_band_fold takes bf16 or fp32"):
+        fa.flash_band_fold(y, y, y, slots, slots, slots, state, bs=BS, scale=1.0)
+
+
+def test_ring_and_sharded_attention_on_card(cuda):
+    """The per-rank bodies of ring and sequence-parallel attention, driven
+    in turn at S = 4, against single-device flash_block_attention."""
+    from sputnik_tpu_torch import parallel
+    from sputnik_tpu_torch.parallel import attention as pattn
+    from sputnik_tpu_torch.parallel import ring_attention as pring
+
+    rng = np.random.default_rng(75)
+    for causal in (True, False):
+        topo = (attention.causal_block_topology(2048, window_blocks=4, device=cuda) if causal
+                else attention.band_topology(2048, 3, device=cuda))
+        q, k, v = (_randn(rng, (2048, 128), cuda, torch.bfloat16) for _ in range(3))
+        want = attention.flash_block_attention(q, k, v, topo, causal=causal)
+        outs = [pring.ring_block_sparse_attention_sequential(q, k, v, _ring(topo), causal=causal)]
+        if not causal:
+            outs.append(pring.ring_block_sparse_attention_sequential(q, k, v, _ring(topo), fused=False))
+        st = parallel.partition_topology_rows(topo, 4)
+        for fused in (True, False):
+            outs.append(pattn.sharded_block_sparse_attention_sequential(q, k, v, st, causal=causal, fused=fused))
+        for out in outs:
+            assert float((torch.cat(out).float() - want.float()).abs().max()) <= ATOL
+
+
+def test_csr_softmax_on_card_built_transpose(cuda):
+    """The raw-CSR softmax of a transpose built on the card (no max_row_nnz
+    hint) equals the same softmax on the CPU."""
+    from sputnik_tpu_torch.formats import csr_from_dense
+
+    rng = np.random.default_rng(76)
+    x = rng.standard_normal((300, 200)).astype(np.float32) * (rng.random((300, 200)) < 0.05)
+    x[:, 7] = 0.0  # an empty row of the transpose
+    t = csr_from_dense(x, device=cuda).transpose()
+    assert t.max_row_nnz is None
+    got = csr_ops.sparse_softmax(t, scale=0.5).values
+    want = csr_ops.sparse_softmax(csr_from_dense(x, device="cpu").transpose(), scale=0.5).values
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
