@@ -7,15 +7,19 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
    versions; build the nineteen CUDA libraries from csrc/ (one nvcc each,
-   all started together) and print the seconds. The run's autotune cache
+   all started together) and print the seconds; beside them, nvcc -Xptxas
+   -v of bsr_dsd.cu prints the registers, spills and shared memory of the
+   sixteen bf16 TMA + wgmma kernels (a spill fails). The run's autotune cache
    (SPUTNIK_TPU_TORCH_TUNE_CACHE) is a file in a temporary directory of
    its own, removed at the end, so that no dispatch reads a winner tuned
    elsewhere.
 2. Kernel against its plain PyTorch version on the card, pointwise within
    ATOL = 5e-2: DSD, DDS and SDD in all four transpose modes at the
-   attention shapes (T = 1024 and 2048, window 4, d_head 128, 8 heads), DSD at the
-   4096^2 / 25% headline shape, a random BSR with empty block-rows and
-   unordered column indices, a random 25% SDD topology; the three flash
+   attention shapes (T = 1024 and 2048, window 4, d_head 128, 8 heads), DSD
+   and DDS in all four modes at the 4096^2 / 25% headline shape, a random
+   BSR with empty block-rows and unordered column indices at N 256 and 384,
+   a random 25% SDD topology (every bsr_dsd_stream case twice, bitwise
+   equal); the three flash
    kernels (forward with lse, dQ, dK/dV) at the training slice's shape
    (8 heads, T = 2048, causal band of window 4), on a random non-causal
    topology with an empty block-row and an empty block-column, and with
@@ -38,8 +42,10 @@ Phases (any failure raises and the script exits non-zero):
    then four band-decode steps against the full sparse forward, <= 2e-3.
 5. Kernel and plain-version times at the slices' shapes (CUDA events, 10
    warm-up and 100 timed iterations): device time from a CUDA graph of the
-   100 calls, and the eager per-call time with the host's cost; the flash
-   kernels at 8 heads, T = 2048, d_head 128, bf16, through their wrappers.
+   100 calls, and the eager per-call time with the host's cost; DSD at the
+   4096^2 / 25% headline beside bsr_dsd_pipelined, PyTorch's BSR matmul and
+   its bound; the flash kernels at 8 heads, T = 2048, d_head 128, bf16,
+   through their wrappers.
 6. The training slice, bf16, the same model: 5 Adam steps (lr 3e-3) on a
    fixed batch of 4 sequences of 2048 tokens (loss = mean of the 4
    lm_loss), once with fused_attention (flash kernels) and once without
@@ -70,9 +76,9 @@ Phases (any failure raises and the script exits non-zero):
    d_model 512, d_ff 2048): (a) the four SELL kernels (spmm, spmm_t, sddmm,
    softmax with both validity sources) against their plain versions on the
    four matrices at the five DLMC sparsities (chunk "auto", sorted rows, as
-   bench/dlmc.py builds them; n = 64), and chunk 128 unsorted at 90% in fp32
-   and bf16: fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp, two
-   runs bitwise equal; (b) the sparse fine-tune of examples/sparse_finetune.py
+   bench/dlmc.py builds them; n = 64), chunk 128 and 256 unsorted at 90% in
+   fp32 and bf16, and chunk 256 sorted in fp32: fp32 within 1e-4 *
+   max|plain|, bf16 within one bf16 ulp, two runs bitwise equal; (b) the sparse fine-tune of examples/sparse_finetune.py
    part 1 at full width: ffn_w1 pruned at 90%, 2048 tokens, a dense
    teacher, 5 fp32 SGD steps at lr 0.5 through ops.csr.spmm: the loss falls
    at every step, the pattern holds, fp32 gradients within 1e-4 * max|g| of
@@ -84,7 +90,8 @@ Phases (any failure raises and the script exits non-zero):
    and the block-sparse attention within 1e-4; (d) the bench/dlmc.py rows
    and each SELL kernel's device time beside its plain version, one
    PyTorch library call computing the same function (a yardstick the port
-   never calls) and its bound.
+   never calls) and its bound, and the bytes sell_spmm_t's gather reads
+   from L2.
 10. The sparse-output slice (SSD / SDS / DSS / SSS) at the JAX grid's
    headline width d = 4096: (a) the four kernels (bsr_flat,
    bsr_sparse_out, bsr_dss_masked, bsr_dss_worklist) against their plain
@@ -170,7 +177,9 @@ Phases (any failure raises and the script exits non-zero):
    (c)-(e) are the benchmark path whose launches the kernels line reports
    for the three probes; (f) the four kernels' device times beside their
    plain versions, bounds and library yardsticks, and the pipelined and
-   stream kernels side by side, DSD and DDS at d = 1024 / 2048 / 4096, 25%.
+   stream kernels in turns (pipelined, stream, stream, pipelined), DSD and
+   DDS at d = 1024 / 2048 / 4096, 25%, and DDS again with the transpose
+   metadata attached beside the time of building it.
 
 14. bench.py's tune pass, the roofline audit and the autotune cache, on the
    q-stream, C-resident, group-resident and input-resident SDD kernels: (a)
@@ -252,6 +261,7 @@ import functools
 import importlib
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -353,6 +363,23 @@ def stored(shape_mk, transposed):
     return shape_mk[:-2] + ((k, m) if transposed else (m, k))
 
 
+# ----------------------------------------------------------------- phase 1 --
+def wgmma_resources(report) -> None:
+    """-Xptxas -v of the bf16 bsr_dsd_stream kernels (TMA + wgmma), one line
+    per (BM, BN, transpose_a, transpose_b) instantiation: registers, spill
+    bytes and static shared memory; a spill fails the phase."""
+    rows = []
+    for name, regs, spill_st, spill_ld, smem in report:
+        found = re.search(r"wgmma_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", name)
+        if found:
+            rows.append((tuple(int(v) for v in found.groups()), regs, spill_st, spill_ld, smem))
+    check(len(rows) == 16, f"-Xptxas -v found {len(rows)} wgmma kernels in bsr_dsd.cu, not 16")
+    for (bm, bn, ta, tb), regs, spill_st, spill_ld, smem in sorted(rows):
+        print(f"  ptxas bsr_dsd_wgmma BM {bm:>3} BN {bn} ta={ta} tb={tb}: {regs} registers, spill stores "
+              f"{spill_st} B, spill loads {spill_ld} B, {smem} B static smem", flush=True)
+    check(all(r[2] == r[3] == 0 for r in rows), "a wgmma kernel of bsr_dsd.cu spills")
+
+
 # ----------------------------------------------------------------- phase 2 --
 def kernel_cases(rng, errors):
     """Every case compares with out_dtype fp32 (the kernel's arithmetic) and
@@ -366,6 +393,10 @@ def kernel_cases(rng, errors):
             want = plain_fn(out_dtype)
             got = got.data if hasattr(got, "offsets") else got
             want = want.data if hasattr(want, "offsets") else want
+            if not name.startswith("sdd"):  # bsr_dsd_stream: every case twice bitwise equal
+                again = kernel_fn(out_dtype)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"{name} out={out_dtype}: two runs differ")
             torch.cuda.synchronize()
             check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
             check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
@@ -406,15 +437,21 @@ def kernel_cases(rng, errors):
                 k = randn(rng, stored((h, dh, t), tb), dtype)
                 sdd_case(f"sdd attention T={t} ta={ta:d} tb={tb:d}", q, k, probs, ta, tb)
     dtype = torch.bfloat16
-    # The bench.py headline shape: 4096^2 at 25% block density, N = 4096.
+    # The bench.py headline shape: 4096^2 at 25% block density, N = 4096
+    # (the bf16 kernel's 128 x 256 tiles), in every mode.
     a = rand_bsr(rng, 4096, 4096, 0.25, dtype, scale=1024 ** -0.5)
-    dsd_case("dsd 4096^2 25% N=4096", a, randn(rng, (4096, 4096), dtype), False, False)
-    # Six blocks over eight block-rows: empty rows, unordered indices.
+    for ta, tb in MODES:
+        b = randn(rng, stored((4096, 4096), tb), dtype)
+        dsd_case(f"dsd 4096^2 25% N=4096 ta={ta:d} tb={tb:d}", a, b, ta, tb)
+        dds_case(f"dds 4096^2 25% N=4096 ta={tb:d} tb={ta:d}", b, a, tb, ta)
+    # Six blocks over eight block-rows: empty rows, unordered indices; N 256
+    # and 384 (no multiple of 256).
     a = rand_bsr(rng, 1024, 1024, 6 / 64, dtype, unordered=True, scale=1 / 16)
     check(a.min_row_nnz == 0, "the empty-row case has no empty row")
-    for ta, tb in MODES:
-        b = randn(rng, stored((1024, 256), tb), dtype)
-        dsd_case(f"dsd empty rows unordered ta={ta:d} tb={tb:d}", a, b, ta, tb)
+    for n in (256, 384):
+        for ta, tb in MODES:
+            b = randn(rng, stored((1024, n), tb), dtype)
+            dsd_case(f"dsd empty rows unordered N={n} ta={ta:d} tb={tb:d}", a, b, ta, tb)
     # SDD on a random 25% topology, K = 512.
     topo = rand_bsr(rng, 1024, 1024, 0.25, dtype, unordered=True)
     for ta, tb in MODES:
@@ -913,14 +950,16 @@ def csr_kernel_cases(rng, errors) -> None:
     """(a): the four SELL kernels against their plain versions on the four
     trained DLMC matrices at the five sparsities, built as bench/dlmc.py
     builds them (chunk "auto", sorted rows): spmm and sddmm at n = 64,
-    spmm_t, and the softmax with both validity sources; plus chunk 128
-    unsorted at 90%, fp32 and bf16. fp32 within 1e-4 * max|plain|, bf16
-    within one bf16 ulp (``testing.bf16_ulp_excess``: the ulp of the larger
-    of the two, floored at 2^-8 * max|plain|); every kernel run twice,
-    bitwise equal."""
+    spmm_t, and the softmax with both validity sources; plus chunk 128 and
+    256 unsorted at 90%, fp32 and bf16, and chunk 256 sorted in fp32 (the
+    gather over the transposed plan takes any chunk). fp32 within 1e-4 *
+    max|plain|, bf16 within one bf16 ulp (``testing.bf16_ulp_excess``: the
+    ulp of the larger of the two, floored at 2^-8 * max|plain|); every
+    kernel run twice, bitwise equal."""
     weights = dlmc_gen.load_weights(WEIGHTS)
     cases = [(key, sp, "auto", True, f32) for key in dlmc_gen.WEIGHT_KEYS for sp in dlmc_gen.SPARSITIES]
-    cases += [("ffn_w1", 0.9, 128, False, dtype) for dtype in (f32, torch.bfloat16)]
+    cases += [("ffn_w1", 0.9, chunk, False, dtype) for chunk in (128, 256) for dtype in (f32, torch.bfloat16)]
+    cases += [("ffn_w1", 0.9, 256, True, f32)]
     for key, sp, chunk, sort_rows, dtype in cases:
         c = dlmc_gen.pruned_csr(weights, key, sp, device=DEV).astype(dtype)
         s = SellMatrix.from_csr(c, chunk=chunk, sort_rows=sort_rows)
@@ -1184,6 +1223,12 @@ def csr_kernel_times(name_limit: str) -> dict:
     label = f"chain head T={CHAIN_T} d={CHAIN_DH}"
     for kname, (kern, plain, lib, nbytes, flops) in specs.items():
         results[(kname, label)] = _kernel_timing(kname, label, kern, plain, lib, nbytes, flops, name_limit)
+    # The transposed SpMM's real traffic: every slot gathers one X row from
+    # L2 (the bound counts X once).
+    ms = results[("sell_spmm_t", f"fine-tune n={FT_TOKENS}")][0]
+    gather = nnz * FT_TOKENS * 4
+    print(f"  sell_spmm_t gather at n={FT_TOKENS}: {nnz} slots x {FT_TOKENS} x 4 B = {gather / 1e9:.3f} GB of X rows "
+          f"read from L2, {gather / ms / 1e9:.2f} TB/s on {name_limit}", flush=True)
     main_shape = {"sell_spmm": f"fine-tune n={FT_TOKENS}", "sell_spmm_t": f"fine-tune n={FT_TOKENS}",
                   "sell_sddmm": f"fine-tune n={FT_TOKENS}", "sell_softmax": label}
     return {kname: results[(kname, shape)] for kname, shape in main_shape.items()}
@@ -2540,11 +2585,21 @@ def p13_kernel_times(rng, name_limit: str) -> dict:
         hflops = 2 * a.nnz_blocks * 128 * 128 * d
         for op, pipe, stream in (("DSD", lambda: PIPE_DSD(a, b), lambda: bsr_dsd.dsd(a, b)),
                                  ("DDS", lambda: PIPE_DDS(b, a), lambda: bsr_dsd.dds(b, a))):
-            (pipe_ms, _), (stream_ms, _) = time_ms(pipe), time_ms(stream)
+            # In turns: pipelined, stream, stream, pipelined.
+            turns = [time_ms(fn)[0] for fn in (pipe, stream, stream, pipe)]
+            pipe_ms, stream_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
             print(f"  {op} {d}^2 25% N {d} bf16: bsr_dsd_pipelined {pipe_ms * 1e3:.2f} us "
                   f"({hflops / pipe_ms / 1e9:.1f} TFLOP/s), bsr_dsd_stream {stream_ms * 1e3:.2f} us "
-                  f"({hflops / stream_ms / 1e9:.1f} TFLOP/s), ratio {stream_ms / pipe_ms:.3f}", flush=True)
-        del a, b
+                  f"({hflops / stream_ms / 1e9:.1f} TFLOP/s), ratio {stream_ms / pipe_ms:.3f}; turns (us) "
+                  f"{[round(t * 1e3, 2) for t in turns]}", flush=True)
+        # DDS reads A through its transpose metadata: built in every call for
+        # a matrix that does not carry it (as above), once for one that does.
+        at = a.with_transpose_metadata()
+        attached = time_ms(lambda: bsr_dsd.dds(b, at))[0]
+        build = time_ms(lambda: a.with_transpose_metadata())[0]
+        print(f"  DDS {d}^2 25% N {d} bf16, transpose metadata attached: bsr_dsd_stream {attached * 1e3:.2f} us "
+              f"({hflops / attached / 1e9:.1f} TFLOP/s); the metadata build alone {build * 1e3:.2f} us", flush=True)
+        del a, b, at
     return results
 
 
@@ -3390,9 +3445,11 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
               bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel, bsr_pipe._kernel,
               mxu_probe._lib, bsr_qstream._qkernel, bsr_cres._lib, bsr_sdd._bres_kernel, bsr_panel._lib,
               bsr_cstack._kernel, fa._fold_lib)
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per source, together
+    with concurrent.futures.ThreadPoolExecutor(len(builds) + 1) as pool:  # one nvcc per source, together
+        report = pool.submit(_build.ptxas_report, "bsr_dsd")
         for built in [pool.submit(f) for f in builds]:
             built.result()
+        wgmma_resources(report.result())
     print(f"kernels built and loaded in {time.perf_counter() - start:.1f} s "
           f"(per library: {_build.build_seconds})", flush=True)
 
@@ -3500,9 +3557,16 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     a = rand_bsr(rng, 4096, 4096, 0.25, bf16)
     b = randn(rng, (4096, 4096), bf16)
     (ms, _), (plain, _) = time_ms(lambda: bsr_dsd.dsd(a, b)), time_ms(lambda: bsr_dsd.dsd_reference(a, b))
+    pipe_ms = time_ms(lambda: PIPE_DSD(a, b))[0]
+    bsr = torch.sparse_bsr_tensor(a.offsets, a.indices, a.data, (4096, 4096))
+    lib = library_call("bsr_dsd_stream 4096^2", lambda: torch.matmul(bsr, b))
     flop = 2 * a.nnz_blocks * 128 * 128 * 4096
+    bound, by = bound_ms(a.data.numel() * 2 + 2 * b.numel() * 2, flop, BF16_FLOPS)
+    lib_text = f"{lib * 1e3:.2f} us" if lib is not None else "none"
     print(f"  bsr_dsd_stream  4096^2 25% N=4096 bf16: kernel {ms * 1e3:.2f} us device "
-          f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain * 1e3:.2f} us device", flush=True)
+          f"({flop / ms / 1e9:.1f} TFLOP/s; {bound / ms:.3f} of its {bound * 1e3:.2f} us {by} bound), "
+          f"bsr_dsd_pipelined {pipe_ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us device, library {lib_text} "
+          f"on {name_limit}", flush=True)
     # The flash kernels at the training slice's attention shape, through
     # their wrappers (not autograd); the backward reads the kernel's lse.
     t = SERVE.seq_len

@@ -2,9 +2,10 @@
 // sell_sddmm and sell_softmax.
 //
 // Replaces sputnik_tpu/kernels/sell.py: _spmm_fused_kernel and _spmm_kernel
-// (sell_spmm), _spmm_t_kernel (sell_spmm_t), _sddmm_fused_kernel and
-// _sddmm_kernel (sell_sddmm), _softmax_counts_kernel and _softmax_kernel
-// (sell_softmax, validity from slot_counts or from the sentinel).
+// (sell_spmm), _spmm_t_kernel (sell_spmm_t, a gather over the transposed
+// plan), _sddmm_fused_kernel and _sddmm_kernel (sell_sddmm),
+// _softmax_counts_kernel and _softmax_kernel (sell_softmax, validity from
+// slot_counts or from the sentinel).
 //
 // The layout: values / indices are (n_chunks, width, rows_padded); slot w of
 // (chunk kc, storage row r) sits at (kc * width + w) * rows_padded + r, its
@@ -155,98 +156,148 @@ __global__ void __launch_bounds__(THREADS) sell_spmm_kernel(Sell s, const D* __r
 }
 
 // -------------------------------------------------------------- sell_spmm_t --
-// C[kc * chunk + c, n] = sum over slots (r, w) of chunk kc with idx == c of
-// values[kc, w, r] * X[row_perm[r], n]: the scatter of A^T, without atomics.
-// One CTA per (chunk kc, tile of CPC columns) owns a (chunk x CPC) fp32
-// accumulator in shared memory for each of its 256 / CPC thread groups,
-// each thread one column n of its group's accumulator. The CTA walks the
-// storage rows in tiles of 32: it stages a tile's slots (value and index,
-// 32 slots at a time) in shared memory with loads coalesced along the row
-// axis, each thread loads X of its group's rows of the tile into
-// registers, and each group then adds its rows' slots in a fixed order
-// (the staged slot read is a broadcast, the accumulator update hits 32
-// banks). The groups' accumulators are added in group order and stored
-// once, so the result is bitwise equal from run to run. What bounds it:
-// the latency of the shared-memory read-modify-write chain, one per (slot,
-// column), with one CTA (8 warps) per SM at chunk 128, and at small N the
-// latency of the row tiles that each CTA walks in order. A gather over
-// transposed metadata, which needs no read-modify-write, is later work.
-constexpr int TILE_ROWS = 32;
-constexpr int SEG = 32;  // staged slots per row
+// C[c, n] = sum over the nonzeros (r, c) of A of A[r, c] * X[r, n], i.e. C =
+// A^T X, as a gather over the transposed plan t (formats.SellTranspose, the
+// SELL layout of A^T): output row c of C is storage row s of t with
+// t.row_perm[s] = c, and its slots (kc, w, s), w < counts[kc, s], name the X
+// row kc * chunk + indices[...] and the value values[positions[...]] of A.
+// Replaces the TPU's _spmm_t_kernel, which densifies a (chunk x rows) panel
+// of A^T per chunk for the MXU. The earlier port scattered into a shared-
+// memory accumulator (a read-modify-write per slot and column); this
+// kernel writes each output element once, zeros included for a column of A
+// with no nonzero, and sums every row in a fixed order (chunks, then slots),
+// so results are bitwise equal from run to run and need no atomics.
+//
+// One CTA of 8 warps per 8 storage rows of t (neighbours in the sorted
+// order have similar lengths) x one N tile of 32 * EPT columns; warp j owns
+// row 8 * blockIdx.x + j and each lane EPT columns of its fp32 sum. The
+// warp walks its row's slots 32 at a time: the lanes read 32 (position,
+// index) pairs across the chunks of a 32-chunk window of counts (a shuffle
+// search of the window's prefix sums finds each lane's chunk) and the
+// values they point at, and stage (value, X row) in a per-warp list in
+// shared memory. Each lane then copies its 16 bytes of the next X row into
+// a per-warp ring of RING stages with cp.async, so that RING X rows are in
+// flight per warp while the oldest is summed. What bounds it: each slot
+// re-reads one X row segment (n * sizeof(D) bytes in all N tiles) from L2,
+// about nnz * n * sizeof(D) bytes a call, far above the bytes-once bound;
+// the ring keeps those loads in flight. Later work: X rows shared in shared
+// memory by the rows of a CTA that gather them (Sputnik's row tiles).
+constexpr int RING = 8;        // X rows in flight per warp
+constexpr int LIST_SIZE = 64;  // staged slots per warp
+static_assert(32 + RING <= LIST_SIZE, "a fill of 32 must not overwrite a slot still in the ring");
 
-template <typename V, typename D, int CPC>
-__global__ void __launch_bounds__(THREADS) sell_spmm_t_kernel(Sell s, const D* __restrict__ x, void* c,
-                                                              int n, int out_f32) {
-  constexpr int GROUPS = THREADS / CPC;
-  constexpr int RPG = TILE_ROWS / GROUPS;  // rows of a tile per group
-  extern __shared__ float acc[];           // [GROUPS][chunk][CPC], then the staged slots
-  float2* staged = reinterpret_cast<float2*>(acc + GROUPS * s.chunk * CPC);  // [SEG][TILE_ROWS]
-  __shared__ int bound_s[TILE_ROWS], lr_s[TILE_ROWS], tile_bound_s;
-  const int g = threadIdx.x / CPC, col = threadIdx.x % CPC;
-  const int kc = blockIdx.x;
-  const int nn = blockIdx.y * CPC + col;
-  const bool active = nn < n;
-  const V* vals = static_cast<const V*>(s.values);
-  const int64_t rp = s.rows_padded;
-  for (int e = threadIdx.x; e < GROUPS * s.chunk * CPC; e += THREADS) acc[e] = 0.f;
-  float* mine = acc + g * s.chunk * CPC + col;
-  for (int r0 = 0; r0 < s.rows_padded; r0 += TILE_ROWS) {
-    __syncthreads();  // the previous tile is consumed
-    if (threadIdx.x < TILE_ROWS) {
-      const int r = r0 + threadIdx.x;
-      const int lr = s.row_perm ? s.row_perm[r] : r;
-      const int bound = lr >= s.rows ? 0 : (s.counts ? s.counts[kc * rp + r] : s.width);
-      bound_s[threadIdx.x] = bound;
-      lr_s[threadIdx.x] = lr;
-      int m = bound;
+template <typename D, int EPT>
+__device__ __forceinline__ void copy_lane(D* dst, const D* src) {
+  constexpr int BYTES = EPT * int(sizeof(D));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src) : "memory");
+  } else if constexpr (BYTES >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src), "n"(BYTES) : "memory");
+  } else {
+    *dst = *src;  // a 2-byte lane (bf16, odd n): cp.async takes 4 bytes or more
+  }
+}
+
+template <typename V, typename D, int EPT>
+__global__ void __launch_bounds__(THREADS) sell_spmm_t_kernel(Sell t, const int* __restrict__ positions,
+                                                              const D* __restrict__ x, void* c, int n,
+                                                              int out_f32) {
+  __shared__ __align__(16) D ring[WARPS][RING][32 * EPT];
+  __shared__ float2 list[WARPS][LIST_SIZE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * WARPS + warp;
+  const int lc = t.row_perm ? t.row_perm[r] : r;
+  if (lc >= t.rows) return;  // a padding row of the plan: no output row
+  const int n0 = (blockIdx.y * 32 + lane) * EPT;
+  const bool active = n0 < n;
+  const V* vals = static_cast<const V*>(t.values);
+  const int64_t rp = t.rows_padded;
+  D* my_ring = &ring[warp][0][lane * EPT];
+  float2* my_list = list[warp];
+
+  float acc[EPT];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (threadIdx.x == 0) tile_bound_s = m;
+  for (int i = 0; i < EPT; ++i) acc[i] = 0.f;
+
+  // The slot walk: a window of 32 chunks (lane j holds chunk kc0 + j's count
+  // and its inclusive prefix), `done` slots of it taken so far.
+  int kc0 = 0, done = 0, cnt = 0, incl = 0, window = 0;
+  auto load_window = [&]() {
+    cnt = kc0 + lane < t.n_chunks ? t.counts[(kc0 + lane) * rp + r] : 0;
+    incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
     }
-    __syncthreads();
-    const int tile_bound = tile_bound_s;
-    if (tile_bound == 0) continue;
-    float xv[RPG];
-#pragma unroll
-    for (int i = 0; i < RPG; ++i) {
-      const int rr = g * RPG + i;
-      xv[i] = active && bound_s[rr] > 0 ? to_f(x[int64_t(lr_s[rr]) * n + nn]) : 0.f;
+    window = __shfl_sync(0xffffffffu, incl, 31);
+    done = 0;
+  };
+  load_window();
+  // Stage the next up to 32 slots at list[q % LIST_SIZE ...]; returns how many.
+  auto fill = [&](int q) -> int {
+    while (done == window) {
+      kc0 += 32;
+      if (kc0 >= t.n_chunks) return 0;
+      load_window();
     }
-    for (int w0 = 0; w0 < tile_bound; w0 += SEG) {
-      if (w0 > 0) __syncthreads();  // the previous segment is consumed
-      for (int e = threadIdx.x; e < SEG * TILE_ROWS; e += THREADS) {
-        const int w = w0 + e / TILE_ROWS, rr = e % TILE_ROWS;
-        float2 slot = make_float2(0.f, __int_as_float(s.chunk));
-        if (w < bound_s[rr]) {
-          const int64_t i = slot_base(s, kc, r0 + rr) + int64_t(w) * rp;
-          slot = make_float2(to_f(vals[i]), __int_as_float(s.indices[i]));
-        }
-        staged[e] = slot;
-      }
-      __syncthreads();
+    const int take = min(32, window - done);
+    // Lane l takes the window's flat slot done + l: find its chunk j, the
+    // number of chunks whose inclusive prefix is at most that slot.
+    const int f = done + min(lane, take - 1);
+    int j = 0;
 #pragma unroll
-      for (int i = 0; i < RPG; ++i) {
-        const int rr = g * RPG + i;
-        const int end = min(bound_s[rr] - w0, SEG);
-        for (int w = 0; w < end; ++w) {
-          const float2 slot = staged[w * TILE_ROWS + rr];
-          const int idx = __float_as_int(slot.y);
-          if (idx < s.chunk) mine[idx * CPC] = fmaf(slot.x, xv[i], mine[idx * CPC]);
-        }
-      }
+    for (int bit = 16; bit > 0; bit >>= 1) {
+      const int at = __shfl_sync(0xffffffffu, incl, j + bit - 1);
+      if (at <= f) j += bit;
+    }
+    const int excl = __shfl_sync(0xffffffffu, incl - cnt, j);
+    __syncwarp();  // every lane is past its reads of the entries overwritten here
+    if (lane < take) {
+      const int kc = kc0 + j, w = f - excl;
+      const int64_t slot = (int64_t(kc) * t.width + w) * rp + r;
+      const int xrow = kc * t.chunk + t.indices[slot];
+      my_list[(q + lane) % LIST_SIZE] = make_float2(to_f(vals[positions[slot]]), __int_as_float(xrow));
+    }
+    __syncwarp();
+    done += take;
+    return take;
+  };
+  auto consume = [&](int q) {
+    const float v = my_list[q % LIST_SIZE].x;
+    if (active) {
+      const D* row = my_ring + (q % RING) * 32 * EPT;
+#pragma unroll
+      for (int i = 0; i < EPT; ++i) acc[i] = fmaf(v, to_f(row[i]), acc[i]);
+    }
+  };
+
+  int filled = 0, issued = 0, consumed = 0;
+  while (true) {
+    if (issued == filled) {
+      const int got = fill(filled);
+      if (got == 0) break;
+      filled += got;
+    }
+    const int xrow = __float_as_int(my_list[issued % LIST_SIZE].y);
+    if (active) copy_lane<D, EPT>(my_ring + (issued % RING) * 32 * EPT, x + int64_t(xrow) * n + n0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    ++issued;
+    if (issued - consumed == RING) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 1) : "memory");
+      consume(consumed++);
     }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < s.chunk * CPC; e += THREADS) {
-    const int cc = e / CPC, cl = e % CPC;
-    const int n_out = blockIdx.y * CPC + cl;
-    const int64_t row = int64_t(kc) * s.chunk + cc;
-    if (n_out >= n || row >= s.cols) continue;
-    float sum = acc[cc * CPC + cl];
-#pragma unroll
-    for (int gg = 1; gg < GROUPS; ++gg) sum += acc[(int64_t(gg) * s.chunk + cc) * CPC + cl];
-    store(c, row * n + n_out, sum, out_f32);
-  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  while (consumed < issued) consume(consumed++);
+  if (!active) return;
+  const int64_t off = int64_t(lc) * n + n0;
+  if (out_f32)
+    store_vec<float, EPT>(static_cast<float*>(c) + off, acc);
+  else
+    store_vec<__nv_bfloat16, EPT>(static_cast<__nv_bfloat16*>(c) + off, acc);
 }
 
 // --------------------------------------------------------------- sell_sddmm --
@@ -397,24 +448,23 @@ void spmm_dispatch_ept(const Sell& s, const void* b, void* c, int n, int ept, in
   }
 }
 
-template <typename V, typename D, int CPC>
-int spmm_t_launch(const Sell& s, const void* x, void* c, int n, int out_f32, cudaStream_t st) {
-  auto kernel = sell_spmm_t_kernel<V, D, CPC>;
-  const int bytes = THREADS * s.chunk * int(sizeof(float)) + SEG * TILE_ROWS * int(sizeof(float2));
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(s.n_chunks, (n + CPC - 1) / CPC);
-  kernel<<<grid, THREADS, bytes, st>>>(s, static_cast<const D*>(x), c, n, out_f32);
-  return 0;
+template <typename V, typename D, int EPT>
+void spmm_t_launch(const Sell& t, const int* positions, const void* x, void* c, int n, int out_f32,
+                   cudaStream_t st) {
+  const dim3 grid(t.rows_padded / WARPS, (n + 32 * EPT - 1) / (32 * EPT));
+  sell_spmm_t_kernel<V, D, EPT><<<grid, THREADS, 0, st>>>(t, positions, static_cast<const D*>(x), c, n, out_f32);
 }
 
 template <typename V, typename D>
-int spmm_t_dispatch_cpc(const Sell& s, const void* x, void* c, int n, int cpc, int out_f32, cudaStream_t st) {
-  switch (cpc) {
-    case 32: return spmm_t_launch<V, D, 32>(s, x, c, n, out_f32, st);
-    case 64: return spmm_t_launch<V, D, 64>(s, x, c, n, out_f32, st);
-    case 128: return spmm_t_launch<V, D, 128>(s, x, c, n, out_f32, st);
-    default: return spmm_t_launch<V, D, 256>(s, x, c, n, out_f32, st);
+void spmm_t_dispatch_ept(const Sell& t, const int* positions, const void* x, void* c, int n, int ept, int out_f32,
+                         cudaStream_t st) {
+  switch (ept) {
+    case 8:
+      if constexpr (sizeof(D) == 2) spmm_t_launch<V, D, 8>(t, positions, x, c, n, out_f32, st);
+      break;
+    case 4: spmm_t_launch<V, D, 4>(t, positions, x, c, n, out_f32, st); break;
+    case 2: spmm_t_launch<V, D, 2>(t, positions, x, c, n, out_f32, st); break;
+    default: spmm_t_launch<V, D, 1>(t, positions, x, c, n, out_f32, st); break;
   }
 }
 
@@ -447,8 +497,8 @@ Sell make_sell(const void* values, const void* indices, const void* counts, cons
 
 }  // namespace
 
-// Every entry point returns cudaGetLastError() after its launch (or the error
-// of setting the shared-memory size). counts and row_perm may be null; the
+// Every entry point returns cudaGetLastError() after its launch. counts and
+// row_perm may be null (sell_spmm_t's counts may not); the
 // dense operands are contiguous, row-major, and aligned to ept elements
 // (ept in {1, 2, 4, 8}, at most 16 bytes, dividing n or k). rows_padded is a
 // multiple of 128.
@@ -473,25 +523,28 @@ extern "C" int sell_spmm(const void* values, const void* indices, const void* co
   return static_cast<int>(cudaGetLastError());
 }
 
-// C (cols, n) = A^T @ X, X (rows, n); cpc in {32, 64, 128, 256} columns per CTA.
-extern "C" int sell_spmm_t(const void* values, const void* indices, const void* counts,
-                           const void* row_perm, const void* x, void* c, int n_chunks, int width,
-                           int rows_padded, int chunk, int rows, int cols, int n, int v_f32, int d_f32,
-                           int out_f32, int cpc, void* stream) {
-  const Sell s = make_sell(values, indices, counts, row_perm, n_chunks, width, rows_padded, chunk, rows, cols);
+// C (t_rows, n) = A^T @ X, X (t_cols, n), over the transposed plan of A: the
+// plan's positions / indices / counts / row_perm with its n_chunks, width,
+// rows_padded, chunk and logical shape (t_rows = A's cols, t_cols = A's
+// rows); values are A's own.
+extern "C" int sell_spmm_t(const void* values, const void* positions, const void* indices, const void* counts,
+                           const void* row_perm, const void* x, void* c, int n_chunks, int width, int rows_padded,
+                           int chunk, int t_rows, int t_cols, int n, int v_f32, int d_f32, int out_f32, int ept,
+                           void* stream) {
+  const Sell t = make_sell(values, indices, counts, row_perm, n_chunks, width, rows_padded, chunk, t_rows, t_cols);
+  const int* pos = static_cast<const int*>(positions);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = 0;
-  if (n > 0 && cols > 0) {
+  if (n > 0 && t_rows > 0) {
     if (v_f32 && d_f32)
-      err = spmm_t_dispatch_cpc<float, float>(s, x, c, n, cpc, out_f32, st);
+      spmm_t_dispatch_ept<float, float>(t, pos, x, c, n, ept, out_f32, st);
     else if (v_f32)
-      err = spmm_t_dispatch_cpc<float, __nv_bfloat16>(s, x, c, n, cpc, out_f32, st);
+      spmm_t_dispatch_ept<float, __nv_bfloat16>(t, pos, x, c, n, ept, out_f32, st);
     else if (d_f32)
-      err = spmm_t_dispatch_cpc<__nv_bfloat16, float>(s, x, c, n, cpc, out_f32, st);
+      spmm_t_dispatch_ept<__nv_bfloat16, float>(t, pos, x, c, n, ept, out_f32, st);
     else
-      err = spmm_t_dispatch_cpc<__nv_bfloat16, __nv_bfloat16>(s, x, c, n, cpc, out_f32, st);
+      spmm_t_dispatch_ept<__nv_bfloat16, __nv_bfloat16>(t, pos, x, c, n, ept, out_f32, st);
   }
-  return err ? err : static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out (n_chunks, width, rows_padded) = A (rows, k) . B (cols, k) at the slots.

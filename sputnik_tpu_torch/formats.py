@@ -55,6 +55,7 @@ __all__ = [
     "csr_to_dense",
     "EllMatrix",
     "SellMatrix",
+    "SellTranspose",
 ]
 
 
@@ -621,6 +622,126 @@ class EllMatrix:
 _AUTO_CHUNK_CROSSOVER = 9.0
 
 
+def _sell_layout(shape, ridx: np.ndarray, cidx: np.ndarray, lens: np.ndarray, chunk, sort_rows: bool) -> dict:
+    """The JAX package's ``SellMatrix.from_csr`` algorithm on host arrays:
+    where each nonzero (CSR order; row ``ridx``, column ``cidx``) goes.
+    ``lens`` are the rows' nonzero counts (for ``sort_rows``). Returns the
+    resolved chunk, rows_p, n_chunks, width, row_perm (or None), the
+    per-(chunk, storage row) counts and tile widths, and for the nonzeros in
+    slot order: ``order`` (their CSR positions), chunk ``ch``, slot ``slot``,
+    storage row ``r`` and column within the chunk ``c``."""
+    rows, cols = shape
+    if chunk == "auto":
+        nnz_per_row_chunk128 = len(cidx) / max(rows, 1) * 128.0 / max(cols, 1)
+        chunk = 64 if nnz_per_row_chunk128 < _AUTO_CHUNK_CROSSOVER else 128
+    rows_p = max(-(-rows // 128) * 128, 128)
+    n_chunks = max(-(-cols // chunk), 1)
+    ridx = ridx.astype(np.int64)
+    row_perm = None
+    if sort_rows:
+        order_rows = np.argsort(-lens, kind="stable").astype(np.int32)
+        row_perm = np.concatenate([order_rows, np.arange(rows, rows_p, dtype=np.int32)])
+        inv = np.empty(rows, np.int64)
+        inv[order_rows] = np.arange(rows)
+        ridx = inv[ridx]  # storage row of each nonzero
+
+    chunk_of = cidx // chunk
+    order = np.lexsort((np.arange(len(cidx)), chunk_of, ridx))
+    r_s, ch_s = ridx[order], chunk_of[order]
+    c_s = (cidx[order] % chunk).astype(np.int32)
+    key = r_s * n_chunks + ch_s
+    if len(key):
+        newgrp = np.concatenate([[True], key[1:] != key[:-1]])
+        grp_start = np.maximum.accumulate(np.where(newgrp, np.arange(len(key)), 0))
+        slot = np.arange(len(key)) - grp_start
+        width = int(slot.max()) + 1
+    else:
+        slot = np.zeros((0,), np.int64)
+        width = 1
+    counts = np.zeros((n_chunks, rows_p), np.int32)
+    np.add.at(counts, (ch_s, r_s), 1)
+    tw = counts.reshape(n_chunks, rows_p // 128, 128).max(axis=2)
+    return dict(chunk=int(chunk), rows_p=rows_p, n_chunks=n_chunks, width=width, row_perm=row_perm,
+                counts=counts, tile_widths=tw, order=order, ch=ch_s, slot=slot, r=r_s, c=c_s)
+
+
+def _slot_grid(layout: dict, fill, dtype) -> np.ndarray:
+    return np.full((layout["n_chunks"], layout["width"], layout["rows_p"]), fill, dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class SellTranspose:
+    """The SELL layout of A^T for a SELL matrix A, with no values of its own:
+    ``indices``, ``slot_counts``, ``tile_widths`` and ``row_perm`` are those
+    of ``SellMatrix.from_csr`` run on the CSR of A^T with A's chunk rule and
+    row sorting (the JAX package's ``SellMatrix.from_csr(CsrMatrix.transpose())``),
+    and ``positions`` maps each slot to the flat index into A's ``values``
+    of the nonzero it holds (0 at padding slots): SELL's counterpart of a
+    BSR's ``block_offsets``. Storage row r of A^T is A's column
+    ``row_perm[r]``; slot (kc, w, r)'s column, ``kc * chunk + indices``, is
+    a logical row of A. Built on the host once per topology; values never
+    move, so the plan holds across value updates."""
+
+    positions: torch.Tensor  # (n_chunks, width, rows_padded) int32
+    indices: torch.Tensor  # (n_chunks, width, rows_padded) int32; `chunk` = padding
+    shape: Tuple[int, int]  # logical (A.cols, A.rows)
+    chunk: int
+    tile_widths: torch.Tensor  # (n_chunks, rows_padded // 128) int32
+    slot_counts: torch.Tensor  # (n_chunks, rows_padded) int32
+    row_perm: Optional[torch.Tensor] = None  # (rows_padded,) int32
+
+    @property
+    def rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def rows_padded(self) -> int:
+        return self.indices.shape[2]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.indices.shape[1]
+
+    def as_sell(self, values: torch.Tensor) -> "SellMatrix":
+        """A^T as a ``SellMatrix``, its values gathered from A's ``values``
+        through ``positions`` (0 at padding slots)."""
+        gathered = values.reshape(-1)[self.positions.long()]
+        gathered = torch.where(self.indices < self.chunk, gathered, torch.zeros((), dtype=values.dtype,
+                                                                                 device=values.device))
+        return SellMatrix(values=gathered, indices=self.indices, shape=self.shape, chunk=self.chunk,
+                          pad_rows=self.rows_padded - self.rows, tile_widths=self.tile_widths,
+                          row_perm=self.row_perm, slot_counts=self.slot_counts)
+
+    @staticmethod
+    def build(shape, rows: np.ndarray, cols: np.ndarray, positions: np.ndarray, *, chunk, sort_rows: bool,
+              device) -> "SellTranspose":
+        """The plan of a matrix of logical ``shape`` from its nonzeros in CSR
+        order (logical row, column, flat position in its SELL values)."""
+        order = np.argsort(cols, kind="stable")  # the CSR of A^T (build_transpose_metadata's order)
+        lens = np.bincount(cols, minlength=shape[1])
+        lay = _sell_layout((shape[1], shape[0]), cols[order], rows[order], lens, chunk, sort_rows)
+        pos = _slot_grid(lay, 0, np.int32)
+        idx = _slot_grid(lay, lay["chunk"], np.int32)
+        pos[lay["ch"], lay["slot"], lay["r"]] = positions[order][lay["order"]]
+        idx[lay["ch"], lay["slot"], lay["r"]] = lay["c"]
+        perm = lay["row_perm"]
+        return SellTranspose(
+            positions=torch.as_tensor(pos).to(device), indices=torch.as_tensor(idx).to(device),
+            shape=(shape[1], shape[0]), chunk=lay["chunk"],
+            tile_widths=torch.as_tensor(lay["tile_widths"]).to(device),
+            slot_counts=torch.as_tensor(lay["counts"]).to(device),
+            row_perm=None if perm is None else torch.as_tensor(perm).to(device),
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class SellMatrix:
     """Sliced-ELL: nonzeros grouped by ``chunk``-column chunk of the
@@ -637,7 +758,9 @@ class SellMatrix:
     order, so valid slots are a prefix of the width axis). With
     ``sort_rows`` (Sputnik's SortedRowSwizzle) storage row ``r`` holds
     logical row ``row_perm[r]``; the ops take inputs and give outputs in
-    logical row order.
+    logical row order. ``transpose_plan`` is the layout of A^T
+    (:class:`SellTranspose`) that the transposed SpMM gathers over; value
+    updates (``with_values``, ``astype``, ``dataclasses.replace``) keep it.
     """
 
     values: torch.Tensor  # (n_chunks, width, rows_padded)
@@ -648,6 +771,7 @@ class SellMatrix:
     tile_widths: Optional[torch.Tensor] = None  # (n_chunks, rows_padded // 128) int32
     row_perm: Optional[torch.Tensor] = None  # (rows_padded,) int32
     slot_counts: Optional[torch.Tensor] = None  # (n_chunks, rows_padded) int32
+    transpose_plan: Optional[SellTranspose] = None
 
     @property
     def rows(self) -> int:
@@ -692,64 +816,61 @@ class SellMatrix:
     def astype(self, dtype: torch.dtype) -> "SellMatrix":
         return dataclasses.replace(self, values=self.values.to(dtype))
 
+    def transpose_layout(self) -> SellTranspose:
+        """``transpose_plan``; a matrix built without one (not by
+        :meth:`from_csr`, e.g. a shard's local matrix) gets it here, built
+        from its indices with one read to the host and kept on the object,
+        so that only the first call reads the card."""
+        if self.transpose_plan is None:
+            idx = _host_numpy(self.indices).astype(np.int64)
+            kc, w, r = np.nonzero(idx < self.chunk)
+            perm = np.arange(self.rows_padded) if self.row_perm is None else _host_numpy(self.row_perm)
+            lrow = perm[r].astype(np.int64)
+            # CSR order: by logical row, then chunk and slot (CSR order within a row's chunk).
+            order = np.lexsort((w, kc, lrow))
+            kc, w, r, lrow = kc[order], w[order], r[order], lrow[order]
+            cols = kc * self.chunk + idx[kc, w, r]
+            flat = (kc * self.width + w) * self.rows_padded + r
+            plan = SellTranspose.build(self.shape, lrow, cols, flat.astype(np.int32), chunk=self.chunk,
+                                       sort_rows=self.row_perm is not None, device=self.device)
+            object.__setattr__(self, "transpose_plan", plan)  # a cache: the pattern it describes is fixed
+        return self.transpose_plan
+
     @staticmethod
     def from_csr(m: CsrMatrix, *, chunk=128, sort_rows: bool = False) -> "SellMatrix":
         """CSR -> sliced-ELL on the host (numpy), the JAX package's algorithm
-        step for step, on the CSR's device. Stable: the slots of a (row,
-        chunk) group keep CSR order. ``chunk="auto"`` takes 64 below
-        ``_AUTO_CHUNK_CROSSOVER`` nonzeros per (row, 128 columns), else 128.
-        A CSR on the card is read back for this: construction, not the hot
-        path."""
+        step for step, on the CSR's device, with the transposed plan
+        (:class:`SellTranspose`, the same ``chunk`` rule and ``sort_rows``).
+        Stable: the slots of a (row, chunk) group keep CSR order.
+        ``chunk="auto"`` takes 64 below ``_AUTO_CHUNK_CROSSOVER`` nonzeros
+        per (row, 128 columns), else 128. A CSR on the card is read back for
+        this: construction, not the hot path."""
         rows, cols = m.shape
-        if chunk == "auto":
-            nnz_per_row_chunk128 = m.nnz / max(rows, 1) * 128.0 / max(cols, 1)
-            chunk = 64 if nnz_per_row_chunk128 < _AUTO_CHUNK_CROSSOVER else 128
-        rows_p = max(-(-rows // 128) * 128, 128)
-        n_chunks = max(-(-cols // chunk), 1)
         vals = _host_numpy(m.values).astype(np.float32)
-        cidx = _host_numpy(m.indices)
+        cidx = _host_numpy(m.indices).astype(np.int64)
         ridx = _host_numpy(m.row_indices).astype(np.int64)
-
-        row_perm = None
-        if sort_rows:
-            offs = _host_numpy(m.offsets)
-            lens = offs[1:] - offs[:-1]
-            order_rows = np.argsort(-lens, kind="stable").astype(np.int32)
-            row_perm = np.concatenate([order_rows, np.arange(rows, rows_p, dtype=np.int32)])
-            inv = np.empty(rows, np.int64)
-            inv[order_rows] = np.arange(rows)
-            ridx = inv[ridx]  # storage row of each nonzero
-
-        chunk_of = cidx // chunk
-        order = np.lexsort((np.arange(len(cidx)), chunk_of, ridx))
-        r_s, ch_s = ridx[order], chunk_of[order]
-        c_s, v_s = (cidx[order] % chunk).astype(np.int32), vals[order]
-        key = r_s * n_chunks + ch_s
-        if len(key):
-            newgrp = np.concatenate([[True], key[1:] != key[:-1]])
-            grp_start = np.maximum.accumulate(np.where(newgrp, np.arange(len(key)), 0))
-            slot = np.arange(len(key)) - grp_start
-            width = int(slot.max()) + 1
-        else:
-            slot = np.zeros((0,), np.int64)
-            width = 1
-        sv = np.zeros((n_chunks, width, rows_p), np.float32)
-        sc = np.full((n_chunks, width, rows_p), chunk, np.int32)
-        sv[ch_s, slot, r_s] = v_s
-        sc[ch_s, slot, r_s] = c_s
-        counts = np.zeros((n_chunks, rows_p), np.int32)
-        np.add.at(counts, (ch_s, r_s), 1)
-        tw = counts.reshape(n_chunks, rows_p // 128, 128).max(axis=2)
+        lens = np.diff(_host_numpy(m.offsets)) if sort_rows else None
+        lay = _sell_layout((rows, cols), ridx, cidx, lens, chunk, sort_rows)
+        sv, sc = _slot_grid(lay, 0, np.float32), _slot_grid(lay, lay["chunk"], np.int32)
+        sv[lay["ch"], lay["slot"], lay["r"]] = vals[lay["order"]]
+        sc[lay["ch"], lay["slot"], lay["r"]] = lay["c"]
+        # The flat position in sv of each nonzero, in CSR order.
+        flat = np.empty(len(cidx), np.int64)
+        flat[lay["order"]] = (lay["ch"] * lay["width"] + lay["slot"]) * lay["rows_p"] + lay["r"]
         device = m.device
+        plan = SellTranspose.build((rows, cols), ridx, cidx, flat.astype(np.int32), chunk=chunk,
+                                   sort_rows=sort_rows, device=device)
+        row_perm = lay["row_perm"]
         return SellMatrix(
             values=torch.as_tensor(sv).to(device=device, dtype=m.dtype),
             indices=torch.as_tensor(sc).to(device),
             shape=(rows, cols),
-            chunk=int(chunk),
-            pad_rows=rows_p - rows,
-            tile_widths=torch.as_tensor(tw).to(device),
+            chunk=lay["chunk"],
+            pad_rows=lay["rows_p"] - rows,
+            tile_widths=torch.as_tensor(lay["tile_widths"]).to(device),
             row_perm=None if row_perm is None else torch.as_tensor(row_perm).to(device),
-            slot_counts=torch.as_tensor(counts).to(device),
+            slot_counts=torch.as_tensor(lay["counts"]).to(device),
+            transpose_plan=plan,
         )
 
     def to_dense(self) -> torch.Tensor:

@@ -19,7 +19,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "load", "build_seconds"]
+__all__ = ["NVCC_FLAGS", "load", "build_seconds", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -74,3 +74,32 @@ def load(name: str) -> ctypes.CDLL:
         os.replace(tmp, lib)
     build_seconds[name] = time.perf_counter() - start
     return ctypes.CDLL(str(lib))
+
+
+def ptxas_report(name: str) -> list:
+    """ptxas's resource report (``-Xptxas -v``) of every kernel of
+    ``csrc/<name>.cu``: ``[(mangled name, registers, spill store bytes,
+    spill load bytes, shared memory bytes)]``, from a device-only compile
+    to a cubin in a temporary directory (the library is not touched)."""
+    arch = [f for f in NVCC_FLAGS if f.startswith("arch=")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_nvcc(), "-gencode", *arch, "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", "-I", str(CSRC),
+               "-o", os.path.join(tmp, f"{name}.cubin"), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu ({proc.returncode}):\n{proc.stderr}")
+    rows, current = [], None
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            current = [line.split("'")[1], 0, 0, 0, 0]
+            rows.append(current)
+        elif current is not None and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            current[2] = int(words[words.index("spill") - 2])
+            current[3] = int(words[words.index("loads") - 3])
+        elif current is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            current[1] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                current[4] = int(words[words.index("smem") - 2])
+    return [tuple(r) for r in rows]

@@ -13,6 +13,10 @@ multiplies the sum at the flush in fp32 (the dequantization), before the
 cast to the output type; an int8 problem may also take the raw int32 sum.
 Launches on int8 operands count apart, in ``LAUNCHES_Q8``.
 
+bf16 problems run on a TMA ring feeding wgmma (``sm_90a``); the tile, the
+grid and the TMA boxes are :func:`stream_plan`'s, a pure function of the
+shapes, and :func:`check_tma` holds the operands to what TMA takes.
+
 On CPU tensors :func:`dsd` and :func:`dds` compute the plain PyTorch version
 (:func:`dsd_reference`, :func:`dds_reference`); on CUDA tensors they launch
 the kernel, or raise for a problem the kernel does not take. ``launch``
@@ -24,6 +28,7 @@ signature (``bsr_dsd_pipelined.pipelined``, the registry's
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Callable
 
@@ -33,7 +38,8 @@ from sputnik_tpu_torch.formats import BlockSparseMatrix, bsr_to_dense
 from sputnik_tpu_torch.kernels import _build, reference
 from sputnik_tpu_torch.kernels.common import oriented as _op
 
-__all__ = ["dsd", "dds", "stream", "launch_args", "dsd_reference", "dds_reference", "LAUNCHES", "LAUNCHES_Q8"]
+__all__ = ["dsd", "dds", "stream", "launch_args", "stream_plan", "check_tma", "StreamPlan", "dsd_reference",
+           "dds_reference", "LAUNCHES", "LAUNCHES_Q8"]
 
 # Kernel launches in this process; each launch of bsr_dsd_stream on bf16 or
 # fp32 operands adds one to LAUNCHES, on int8 operands to LAUNCHES_Q8.
@@ -43,6 +49,60 @@ LAUNCHES_Q8 = 0
 # Operand dtype -> kernel code, output dtype -> kernel code.
 IN_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.int32: 2}
+
+SMS = 132  # the H100 SXM's streaming multiprocessors: one wave of CTAs
+_BK = 64  # k-slice of a stage, and the TMA box edge along a 128-byte swizzled axis
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """The bf16 kernel's launch: BM x BN output tiles (BM / 64 consumer
+    warpgroups and a producer warp a CTA), the grid (n tiles, block-rows x
+    128 / BM, batch), and the TMA boxes (innermost first) of the sparse and
+    dense operands with the loads of each per stage."""
+
+    bm: int
+    bn: int
+    grid: tuple
+    a_box: tuple
+    a_loads: int
+    b_box: tuple
+    b_loads: int
+
+
+def stream_plan(n_groups: int, n_cols: int, batch: int, *, transpose_sparse: bool,
+                transpose_dense: bool) -> StreamPlan:
+    """The bf16 ``bsr_dsd_stream`` launch for ``n_groups`` 128-row
+    block-rows, ``n_cols`` output columns (a multiple of 128) and ``batch``.
+
+    BM is 64 when 128-row tiles would fill less than one wave of the card's
+    132 SMs (the attention shapes: N = d_head = 128, 8 heads, 8-16
+    block-rows), else 128. BN is 256 where N allows and 256-wide tiles
+    still fill a wave, else 128. A stored-(k, m) sparse block (a transposed
+    A) loads as BM / 64 boxes of 64 x 64, a stored-(m, k) one as one box of
+    64 k x BM rows; a stored-(k, n) dense slice as BN / 64 boxes of 64 x 64,
+    a stored-(n, k) one as one box of 64 k x BN rows."""
+    tiles_128 = n_groups * batch * (n_cols // 128)  # CTAs at 128 x 128
+    bm = 64 if tiles_128 < SMS else 128
+    wide = n_groups * batch * (128 // bm) * (n_cols // 256)
+    bn = 256 if n_cols % 256 == 0 and wide >= SMS else 128
+    a_box, a_loads = ((_BK, _BK), bm // _BK) if transpose_sparse else ((_BK, bm), 1)
+    b_box, b_loads = ((_BK, bn), 1) if transpose_dense else ((_BK, _BK), bn // _BK)
+    return StreamPlan(bm=bm, bn=bn, grid=(n_cols // bn, n_groups * (128 // bm), batch), a_box=a_box,
+                      a_loads=a_loads, b_box=b_box, b_loads=b_loads)
+
+
+def check_tma(kernel: str, **operands) -> None:
+    """Raise ``ValueError`` for an operand TMA cannot load: each is given as
+    ``name=(address, row stride, batch stride)`` (bytes); the address must
+    be 16-byte aligned, the strides multiples of 16 bytes."""
+    for name, (ptr, row_stride, batch_stride) in operands.items():
+        if ptr % 16:
+            raise ValueError(f"{kernel}: {name} address must be 16-byte aligned for TMA")
+        if row_stride % 16:
+            raise ValueError(f"{kernel}: {name} row stride of {row_stride} bytes is not a multiple of 16 (TMA)")
+        if batch_stride % 16:
+            raise ValueError(f"{kernel}: {name} batch stride of {batch_stride} bytes is not a multiple of 16 (TMA)")
 
 
 def dsd_reference(a: BlockSparseMatrix, b, *, transpose_a=False, transpose_b=False, out_dtype=None,
@@ -82,7 +142,7 @@ def _kernel():
         [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 3
         + [ctypes.c_longlong] * 6
-        + [ctypes.c_int] * 2
+        + [ctypes.c_int] * 10
         + [ctypes.c_float]
         + [ctypes.c_int] * 2
         + [ctypes.c_void_p]
@@ -203,9 +263,18 @@ def stream(
         check_dtypes_fn=lambda a, b, c: check_dtypes("bsr_dsd_stream", a, b, c, out_scale),
     )
     data = sparse.data
+    n_groups, n_cols, batch, ldb, _, _, a_bstride, b_bstride = args[6:14]
+    k_dim = sparse.rows if transpose_sparse else sparse.cols
+    plan = (0, 0, 0, 0, 0, 0)
+    if data.dtype == torch.bfloat16:
+        check_tma("bsr_dsd_stream", sparse_data=(data.data_ptr(), 128 * 2, a_bstride * 2),
+                  dense=(dense.data_ptr(), ldb * 2, b_bstride * 2))
+        p = stream_plan(n_groups, n_cols, batch, transpose_sparse=transpose_sparse, transpose_dense=transpose_dense)
+        plan = (p.bm, p.bn, *p.a_box, *p.b_box)
     err = _kernel()(
-        *args, IN_KINDS[data.dtype], OUT_KINDS[out.dtype], 1.0 if out_scale is None else float(out_scale),
-        int(transpose_sparse), int(transpose_dense), torch.cuda.current_stream(data.device).cuda_stream,
+        *args, data.shape[-3], k_dim, *plan, IN_KINDS[data.dtype], OUT_KINDS[out.dtype],
+        1.0 if out_scale is None else float(out_scale), int(transpose_sparse), int(transpose_dense),
+        torch.cuda.current_stream(data.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"bsr_dsd_stream launch failed: cudaError {err}")

@@ -10,6 +10,15 @@ N, and fold the row permutation of a row-sorted matrix into their row
 addressing, where the JAX package gathers rows before and after its
 kernels; the results are the same.
 
+The transposed SpMM gathers over the SELL layout of A^T
+(``formats.SellTranspose``, ``SellMatrix.transpose_plan``): each output row
+(a column of A) sums its slots in a fixed order and is written once, no
+scatter. ``SellMatrix.from_csr`` builds the plan on the host with the
+matrix, and value updates keep it, so the fine-tune's steps read nothing
+back; a matrix built without one (a shard's local matrix) gets it at its
+first transposed SpMM, with one read of its indices to the host, and keeps
+it (``SellMatrix.transpose_layout``).
+
 JAX's ``variant``, ``row_tile`` and ``n_tile`` choose among TPU schedules of
 one function and are gated by the TPU's VMEM (``_fused_fits``,
 ``_sddmm_use_fused``). They are accepted and validated here and then run
@@ -45,7 +54,6 @@ LAUNCHES = {"sell_spmm": 0, "sell_spmm_t": 0, "sell_sddmm": 0, "sell_softmax": 0
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _TR = 128  # SellMatrix pads rows to a multiple of this
 _NEG = -1e30
-_SPMM_T_MAX_CHUNK = 128  # the kernel's shared-memory accumulator is 256 x chunk fp32
 
 
 @functools.cache
@@ -54,7 +62,7 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {
         "sell_spmm": [ptr] * 6 + [i32] * 11 + [ptr],
-        "sell_spmm_t": [ptr] * 6 + [i32] * 11 + [ptr],
+        "sell_spmm_t": [ptr] * 7 + [i32] * 11 + [ptr],
         "sell_sddmm": [ptr] * 6 + [i32] * 10 + [ptr],
         "sell_softmax": [ptr] * 4 + [i32] * 4 + [ctypes.c_float, i32, ptr],
     }
@@ -228,17 +236,22 @@ def _spmm_t_cuda(a: SellMatrix, x: torch.Tensor, *, out_dtype) -> torch.Tensor:
     _check_topology("sell_spmm_t", a, device)
     if out_dtype not in KERNEL_DTYPES:
         raise ValueError(f"sell_spmm_t: output dtype {out_dtype} not supported")
-    if a.chunk > _SPMM_T_MAX_CHUNK:
-        raise ValueError(f"sell_spmm_t takes chunk <= {_SPMM_T_MAX_CHUNK}, got {a.chunk}")
+    if a.values.numel() >= 2 ** 31:
+        raise ValueError(f"sell_spmm_t: {a.values.numel()} slots do not fit the int32 position map")
+    t = a.transpose_layout()
+    for name in ("positions", "indices", "slot_counts", "row_perm"):
+        m = getattr(t, name)
+        if m is not None and (m.dtype != torch.int32 or m.device != device or not m.is_contiguous()):
+            raise ValueError(f"sell_spmm_t: the transposed plan's {name} must be contiguous int32 on {device}")
     values, x = a.values.contiguous(), x.contiguous()
     n = x.shape[1]
-    cpc = next(c for c in (32, 64, 128, 256) if c >= n or c == 256)  # columns per CTA
     out = torch.empty((a.cols, n), dtype=out_dtype, device=device)
+    ept = _elements_per_lane(n, x, out)
     err = _lib().sell_spmm_t(
-        values.data_ptr(), a.indices.data_ptr(), _ptr(a.slot_counts), _ptr(a.row_perm),
-        x.data_ptr(), out.data_ptr(), a.n_chunks, a.width, a.rows_padded, a.chunk, a.rows, a.cols, n,
-        int(a.dtype == torch.float32), int(x.dtype == torch.float32), int(out_dtype == torch.float32),
-        cpc, _stream(device),
+        values.data_ptr(), t.positions.data_ptr(), t.indices.data_ptr(), t.slot_counts.data_ptr(),
+        _ptr(t.row_perm), x.data_ptr(), out.data_ptr(), t.n_chunks, t.width, t.rows_padded, t.chunk, t.rows,
+        t.cols, n, int(a.dtype == torch.float32), int(x.dtype == torch.float32), int(out_dtype == torch.float32),
+        ept, _stream(device),
     )
     _raise_on("sell_spmm_t", err)
     return out

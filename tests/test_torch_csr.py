@@ -150,7 +150,63 @@ def test_spmm_matches_jax(rows, cols, density, sort_rows):
     jb, tb = _dense(np.random.default_rng(7), (cols, n))
     _close(csr.spmm(t, tb), jcsr.spmm(j, jb))
     jx, tx = _dense(np.random.default_rng(8), (rows, n))
-    _close(sell.spmm_t(t, tx), jsell.spmm_t(j, jx))
+    want = jsell.spmm_t(j, jx)
+    _close(sell.spmm_t(t, tx), want)
+    # The transposed SpMM is an SpMM over the transposed plan.
+    _close(sell.spmm_reference(t.transpose_plan.as_sell(t.values), tx), want)
+
+
+@pytest.mark.parametrize("rows,cols,density", SHAPES)
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("sort_rows", [False, True])
+def test_sell_transpose_plan_matches_jax(rows, cols, density, chunk, sort_rows):
+    """SellMatrix.from_csr's transposed plan is the JAX package's
+    SellMatrix.from_csr(CsrMatrix.transpose()) exactly, its position map
+    gathers JAX's transposed values exactly, a plan built from the SELL
+    arrays alone (a shard's local matrix) is the same plan, and value
+    updates keep it."""
+    jm, tm = _pair(15, rows, cols, density, unordered=True)
+    j = jformats.SellMatrix.from_csr(jm.transpose(), chunk=chunk, sort_rows=sort_rows)
+    t = formats.SellMatrix.from_csr(tm, chunk=chunk, sort_rows=sort_rows)
+    plan = t.transpose_plan
+    for name in ("indices", "slot_counts", "row_perm", "tile_widths"):
+        got, want = getattr(plan, name), getattr(j, name)
+        if want is None:
+            assert got is None, name
+            continue
+        np.testing.assert_array_equal(_np(got), np.asarray(want), err_msg=name)
+        assert got.dtype == torch.int32, name
+    assert (plan.shape, plan.chunk, plan.rows_padded - plan.rows) == (j.shape, j.chunk, j.pad_rows)
+    assert plan.positions.dtype == torch.int32 and plan.positions.shape == plan.indices.shape
+    np.testing.assert_array_equal(_np(plan.as_sell(t.values).values), np.asarray(j.values))
+    bare = dataclasses.replace(t, transpose_plan=None)
+    rebuilt = bare.transpose_layout()
+    assert bare.transpose_layout() is rebuilt  # built once, kept on the object
+    for name in ("positions", "indices", "slot_counts", "row_perm", "tile_widths"):
+        got, want = getattr(rebuilt, name), getattr(plan, name)
+        assert (got is None and want is None) or torch.equal(got, want), name
+    assert t.with_values(t.values * 2).transpose_plan is plan
+    assert t.astype(torch.bfloat16).transpose_plan is plan
+    assert dataclasses.replace(t, slot_counts=None).transpose_plan is plan
+
+
+@pytest.mark.parametrize("sparsity", dlmc_gen.SPARSITIES)
+def test_spmm_t_plan_on_dlmc_matches_jax(sparsity):
+    """The four trained DLMC-protocol matrices, built as the bench builds
+    them (chunk "auto", sorted rows): the plain SpMM over the transposed
+    plan and the port's spmm_t against JAX's spmm_t, n = 16."""
+    jw, tw = jdlmc_gen.load_weights(WEIGHTS), dlmc_gen.load_weights(WEIGHTS)
+    rng = np.random.default_rng(16)
+    for key in dlmc_gen.WEIGHT_KEYS:
+        jc, tc = jdlmc_gen.pruned_csr(jw, key, sparsity), dlmc_gen.pruned_csr(tw, key, sparsity, device="cpu")
+        j = jformats.SellMatrix.from_csr(jc, chunk="auto", sort_rows=True)
+        t = formats.SellMatrix.from_csr(tc, chunk="auto", sort_rows=True)
+        jt = jformats.SellMatrix.from_csr(jc.transpose(), chunk="auto", sort_rows=True)
+        np.testing.assert_array_equal(_np(t.transpose_plan.indices), np.asarray(jt.indices), err_msg=key)
+        jx, tx = _dense(rng, (t.rows, 16))
+        want = jsell.spmm_t(j, jx)
+        _close(sell.spmm_reference(t.transpose_plan.as_sell(t.values), tx), want)
+        _close(sell.spmm_t(t, tx), want)
 
 
 @pytest.mark.parametrize("rows,cols,density,variant",

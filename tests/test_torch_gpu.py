@@ -45,7 +45,7 @@ import pytest
 import torch
 
 from sputnik_tpu_torch import ops, prune
-from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix
+from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_dense
 from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.bench import headline, mxu_probe, tune
 from sputnik_tpu_torch.kernels import (bsr_cres, bsr_cstack, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_panel, bsr_qstream,
@@ -127,6 +127,41 @@ def test_empty_rows_are_zero(cuda):
     bsr_dsd.stream(m, b, out, transpose_sparse=False, transpose_dense=False, out_transposed=False)
     torch.testing.assert_close(out, reference.dsd(m, b, out_dtype=torch.float32), atol=0, rtol=0)
     assert float(out[:128].abs().max()) == 0.0 and float(out[256:384].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n", [128, 384, 4096])
+@pytest.mark.parametrize("ta,tb", MODES)
+def test_stream_bf16_matches_plain(cuda, n, ta, tb):
+    """The bf16 bsr_dsd_stream (TMA + wgmma) against its plain version, DSD
+    and DDS in every mode, bf16 -> bf16 within one bf16 ulp and -> fp32
+    within 1e-4 * max|plain|, a batch of 2 sharing one topology with an
+    empty block-row and block-column and unordered indices; every call twice
+    bitwise equal and one launch."""
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    a = testing.random_bsr(rng, 512, 512, 6 * BS * BS, BS, unordered=True, device=cuda)
+    assert a.min_row_nnz == 0 and a.min_col_nnz == 0
+    a = a.with_data(_randn(rng, (2,) + tuple(a.data.shape), cuda, bf) / 16)
+    b = _randn(rng, (2,) + ((n, 512) if tb else (512, n)), cuda, bf)
+    x = _randn(rng, (2,) + ((512, n) if ta else (n, 512)), cuda, bf)
+    cases = {
+        "dsd": (lambda o: bsr_dsd.dsd(a, b, transpose_a=ta, transpose_b=tb, out_dtype=o),
+                lambda o: bsr_dsd.dsd_reference(a, b, transpose_a=ta, transpose_b=tb, out_dtype=o)),
+        "dds": (lambda o: bsr_dsd.dds(x, a, transpose_a=ta, transpose_b=tb, out_dtype=o),
+                lambda o: bsr_dsd.dds_reference(x, a, transpose_a=ta, transpose_b=tb, out_dtype=o)),
+    }
+    for name, (kernel, plain) in cases.items():
+        for out_dtype in (bf, torch.float32):
+            before = bsr_dsd.LAUNCHES
+            got = kernel(out_dtype)
+            assert bsr_dsd.LAUNCHES == before + 1, name
+            again, want = kernel(out_dtype), plain(out_dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), f"{name} {out_dtype}: two runs differ"
+            if out_dtype == bf:
+                assert testing.bf16_ulp_excess(got, want) <= 1, name
+            else:
+                assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), name
 
 
 def test_registry_routes_cuda_to_kernels(cuda):
@@ -344,14 +379,19 @@ def _sell_on_card(rng, rows, cols, density, cuda, dtype, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("chunk,sort_rows", [(128, False), ("auto", True), (64, True)])
+@pytest.mark.parametrize("chunk,sort_rows", [(128, False), ("auto", True), (64, True), (64, False), (128, True),
+                                             (256, False), (256, True)])
 def test_sell_kernels_match_plain(cuda, dtype, chunk, sort_rows):
-    """Each SELL kernel against its plain version on the same card tensors:
+    """Each SELL kernel against its plain version on the same card tensors,
+    on a matrix with an empty column (an output row of spmm_t with no slot):
     fp32 within 1e-4 * max|plain|, bf16 within one bf16 ulp (floored at
     2^-8 * max|plain|, testing.bf16_ulp_excess); two runs of a
     kernel bitwise equal; one launch each."""
     rng = np.random.default_rng(11)
-    s = _sell_on_card(rng, 300, 520, 0.08, cuda, dtype, chunk=chunk, sort_rows=sort_rows)
+    c = testing.random_csr(rng, 300, 520, int(300 * 520 * 0.08), dtype=dtype, device=cuda)
+    dense = c.to_dense()
+    dense[:, 7] = 0
+    s = SellMatrix.from_csr(csr_from_dense(dense), chunk=chunk, sort_rows=sort_rows)
     b, x = _randn(rng, (520, 96), cuda, dtype), _randn(rng, (300, 96), cuda, dtype)
     q, k = _randn(rng, (300, 64), cuda, dtype), _randn(rng, (520, 64), cuda, dtype)
     sentinel = dataclasses.replace(s, slot_counts=None)
@@ -381,12 +421,26 @@ def test_sell_kernels_match_plain(cuda, dtype, chunk, sort_rows):
 
 def test_sell_ops_read_nothing_back(cuda):
     """spmm on a weight and the chain sddmm -> softmax -> spmm on the
-    kernels, forward and backward, under set_sync_debug_mode("error"); fp32
+    kernels, forward and backward (the transposed SpMM over the plans that
+    from_csr built on the card), under set_sync_debug_mode("error"); fp32
     gradients within 1e-4 * max|g| of the plain path, padding slots with
-    zero gradient."""
+    zero gradient. A matrix built without a plan reads its indices once, at
+    its first transposed SpMM, and never again."""
     rng = np.random.default_rng(12)
     w = _sell_on_card(rng, 256, 384, 0.1, cuda, torch.float32, chunk="auto", sort_rows=True)
     topo = _sell_on_card(rng, 256, 256, 0.1, cuda, torch.float32, sort_rows=True)
+    assert w.transpose_plan.positions.is_cuda and topo.transpose_plan.indices.is_cuda
+    bare = dataclasses.replace(w, transpose_plan=None)
+    x = _randn(rng, (256, 64), cuda, torch.float32)
+    first = sell.spmm_t(bare, x)  # builds and keeps the plan: one read
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = sell.spmm_t(bare, x)
+        planned = sell.spmm_t(w, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, again) and torch.equal(first, planned)
     b = _randn(rng, (384, 64), cuda, torch.float32)
     q, k, v = (_randn(rng, (256, 64), cuda, torch.float32) for _ in range(3))
     grads = []
