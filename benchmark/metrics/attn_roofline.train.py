@@ -1,0 +1,9 @@
+"""attn_roofline.train: Percent: the layer's least time (flops.py, bytes once) over the device time under its ranges."""
+
+from benchmark import readers
+
+RANGES = [readers.ATTENTION]
+
+
+def read(r):
+    return readers.roofline(r, RANGES)
