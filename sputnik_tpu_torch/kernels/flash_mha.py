@@ -320,7 +320,9 @@ _PASSES = {
 def passes(q, k, v, topology, variant: Optional[str] = None) -> _Passes:
     """The (fwd, dq, dkv) functions of the registry's first fit for the
     problem, or of ``variant``."""
-    return _PASSES[registry.dispatch_name("flash_mha", q, k, v, topology, variant=variant)]
+    name = registry.dispatch_name("flash_mha", q, k, v, topology, variant=variant)
+    registry.count_route("flash_mha", name)
+    return _PASSES[name]
 
 
 class FlashMHA(torch.autograd.Function):

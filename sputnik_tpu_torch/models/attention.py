@@ -27,6 +27,7 @@ from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels.flash_attention import flash_attention_heads, flash_block_attention
 from sputnik_tpu_torch.kernels.flash_mha import flash_mha
+from sputnik_tpu_torch.utils import tracing
 from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -134,6 +135,7 @@ def topk_block_topology(
                                     max_row_nnz=k_blocks, max_col_nnz=s_q)
 
 
+@tracing.traced("attention", inputs=(0, 1, 2))
 def multihead_block_sparse_attention(
     q: torch.Tensor,  # (H, T, dh)
     k: torch.Tensor,
@@ -184,6 +186,7 @@ def _attend_pages(q, k_sel, v_sel, sel_valid, scale):
     return out.to(q.dtype)
 
 
+@tracing.traced("attention", inputs=(0, 1, 2))
 def decode_topk_attention(
     q: torch.Tensor,  # (..., dh): one decode step
     k_cache: torch.Tensor,  # (..., T, dh)
@@ -238,6 +241,7 @@ def decode_topk_attention(
     return _attend_pages(q, torch.gather(kb, -3, gather), torch.gather(vb, -3, gather), sel_valid, scale)
 
 
+@tracing.traced("attention", inputs=(0, 1, 2))
 def decode_band_attention(
     q: torch.Tensor,  # (..., dh)
     k_cache: torch.Tensor,  # (..., T, dh)

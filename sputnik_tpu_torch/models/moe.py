@@ -41,6 +41,7 @@ from torch import nn
 from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels import bsr_ffn
+from sputnik_tpu_torch.utils import tracing
 from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -199,6 +200,7 @@ class _FusedBsrFfn(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+@tracing.traced("moe", inputs=(1,))
 def moe_forward(
     params,
     x: torch.Tensor,  # (tokens, d_model)
@@ -218,6 +220,10 @@ def moe_forward(
     if impl != "grouped" and topology is None:
         raise ValueError(f"impl={impl!r} needs the block-diagonal topology")
     slot, keep, prob, aux = _route(router_logits(params, x, cfg), cfg)
+    if tracing.recording():
+        tracing.count("moe.tokens_routed", x.shape[0])
+        tracing.count_device("moe.tokens_kept", keep)
+        tracing.count("moe.slots_computed", cfg.padded_tokens)
 
     # Scatter tokens into expert capacity slots; dropped tokens all land on a
     # sacrificial extra row that is sliced off, so duplicate indices only
@@ -255,6 +261,7 @@ def moe_loss(params, x: torch.Tensor, target: torch.Tensor, cfg: MoEConfig,
     return mse + cfg.router_aux_weight * aux
 
 
+@tracing.traced("moe", inputs=(1,))
 def moe_one(params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Per-token top-1 MoE FFN, y = prob * expert(x), for decoding: the
     per-token semantics of :func:`moe_forward` when no token is dropped.
@@ -376,6 +383,7 @@ def _dropless_route(logits: torch.Tensor, t: int, cfg: MoEConfig, row_group: int
     return max_block_rows, probs, prob, expert, onehot, expert_rows, dest, src
 
 
+@tracing.traced("moe", inputs=(1,))
 def dropless_moe_forward(
     params,
     x: torch.Tensor,  # (tokens, d_model)

@@ -36,6 +36,7 @@ from torch import nn
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.models import attention as attn_lib
 from sputnik_tpu_torch.models import moe as moe_lib
+from sputnik_tpu_torch.utils import tracing
 from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -208,6 +209,7 @@ def lm_forward(params: SparseLM, tokens: torch.Tensor, cfg: TransformerConfig, t
     return _logits(x, params.embed), aux_total
 
 
+@tracing.traced("loss", inputs=(1,))
 def lm_loss(params: SparseLM, tokens: torch.Tensor, cfg: TransformerConfig, topos=None) -> torch.Tensor:
     """Next-token cross-entropy (fp32 log-softmax of the logits at every
     position but the last) plus 0.01 times the summed router aux loss."""
@@ -291,6 +293,7 @@ def lm_prefill(params: SparseLM, prompt: torch.Tensor, cfg: TransformerConfig, m
     return caches, _logits(x[-1], params.embed)
 
 
+@tracing.traced("decode_step", inputs=(1,))
 @torch.no_grad()
 def lm_decode_step(params: SparseLM, token: torch.Tensor, caches: Caches, pos: int,
                    cfg: TransformerConfig, *, mode: str = "band", k_pages: Optional[int] = None):
@@ -323,6 +326,7 @@ def decode_tokens(params: SparseLM, first_logits: torch.Tensor, caches: Caches, 
     (B, vocab), then ``n_new - 1`` steps at positions ``tp``, ``tp + 1``, ...
     (the caches are updated in place). Returns (B, n_new) token ids."""
     token = sample_tokens(first_logits, temperature, generator)
+    tracing.mark("first_token", token.device, rows=token.numel())
     out = [token]
     for i in range(n_new - 1):
         logits, caches = lm_decode_step(params, token, caches, tp + i, cfg, mode=mode, k_pages=k_pages)
@@ -360,14 +364,18 @@ def lm_generate_batched(
     max_len = max_len or cfg.seq_len
     if tp + n_new > max_len:
         raise ValueError(f"prompt ({tp}) + n_new ({n_new}) exceeds max_len {max_len}")
-    per_seq = [lm_prefill(params, prompts[i], cfg, max_len) for i in range(bsz)]
-    caches = [
-        {name: torch.stack([c[layer][name] for c, _ in per_seq]) for name in ("k", "v")}
-        for layer in range(cfg.n_layers)
-    ]
-    first = torch.stack([logits for _, logits in per_seq])
-    return decode_tokens(params, first, caches, tp, cfg, n_new, mode=mode, k_pages=k_pages,
-                         temperature=temperature, generator=generator)
+    with tracing.span("generate", prompts.device, new_call=True):
+        per_seq = []
+        for i in range(bsz):
+            with tracing.span("prefill", prompts.device, row=i):
+                per_seq.append(lm_prefill(params, prompts[i], cfg, max_len))
+        caches = [
+            {name: torch.stack([c[layer][name] for c, _ in per_seq]) for name in ("k", "v")}
+            for layer in range(cfg.n_layers)
+        ]
+        first = torch.stack([logits for _, logits in per_seq])
+        return decode_tokens(params, first, caches, tp, cfg, n_new, mode=mode, k_pages=k_pages,
+                             temperature=temperature, generator=generator)
 
 
 def lm_generate(params: SparseLM, prompt: torch.Tensor, cfg: TransformerConfig, n_new: int, *,

@@ -13,6 +13,11 @@ The precedence: ``variant=``, then :func:`forced_variant`, then the
 autotune cache (``ops/autotune.py``: the tuned winner for the problem's
 signature, passed over when its ``can_implement`` refuses the problem),
 then first fit. With an empty cache no signature is computed.
+
+While a ``torch.profiler`` session is active, every dispatch adds one to
+the host counter ``dispatch.<op>.<variant>`` (:func:`count_route`,
+``utils/tracing.py``). Variants named ``cuda_*`` launch the port's
+hand-written kernels; no other variant does.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ import importlib
 import logging
 from typing import Callable, Dict, List, Optional
 
+from sputnik_tpu_torch.utils import tracing
+
 __all__ = ["KernelVariant", "register", "dispatch", "dispatch_name", "first_fit_name", "forced_variant",
-           "variants_for"]
+           "variants_for", "count_route"]
 
 # Enable with logging.getLogger("sputnik_tpu_torch").setLevel(logging.DEBUG).
 log = logging.getLogger("sputnik_tpu_torch")
@@ -113,8 +120,18 @@ def _first_fit(op: str, variants, args, kwargs) -> KernelVariant:
     )
 
 
+def count_route(op: str, name: str) -> None:
+    """While a profiler is active, count one dispatch of ``op`` to the
+    variant ``name`` in the host counter ``dispatch.<op>.<name>``
+    (``utils/tracing.py``)."""
+    if tracing.recording():
+        tracing.count(f"dispatch.{op}.{name}")
+
+
 def dispatch(op: str, *args, variant: Optional[str] = None, **kwargs):
-    return _select(op, args, kwargs, variant).launch(*args, **kwargs)
+    v = _select(op, args, kwargs, variant)
+    count_route(op, v.name)
+    return v.launch(*args, **kwargs)
 
 
 def dispatch_name(op: str, *args, variant: Optional[str] = None, **kwargs) -> str:

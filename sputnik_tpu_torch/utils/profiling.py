@@ -10,7 +10,9 @@ carries.
 
 The JAX package's ``trace_device_total`` / ``trace_device_events`` read
 ``jax.profiler`` traces; their ``torch.profiler`` counterpart is not
-written yet (ROADMAP item 14).
+written yet (ROADMAP item 14). The port's own spans, marks and counters,
+recorded while a ``torch.profiler`` session is active, are in
+:mod:`sputnik_tpu_torch.utils.tracing`.
 """
 
 from __future__ import annotations

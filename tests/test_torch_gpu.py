@@ -1390,3 +1390,67 @@ def test_csr_softmax_on_card_built_transpose(cuda):
     want = csr_ops.sparse_softmax(csr_from_dense(x, device="cpu").transpose(), scale=0.5).values
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_spans_on_card_share_the_profilers_clock(cuda):
+    """The port's spans under a CUDA profiler: every ``sputnik.*``
+    annotation starts within 0.5 ms of its stored span's host start, every
+    span's device interval is positive and the layers' lie inside their
+    parent's, the first token follows the prefills on the card, the device
+    counter of kept tokens equals _route's count, and the registry's
+    dispatches reach the kernels (``cuda_*``) at d_head 128."""
+    import collections
+
+    from sputnik_tpu_torch.utils import tracing
+
+    cfg = tr.TransformerConfig(d_model=256, n_heads=2, seq_len=512, window_blocks=2, n_experts=2,
+                               d_ff=128, n_layers=2, vocab=128)
+    model = tr.init_lm_params(cfg, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (cfg.seq_len,), generator=g, device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (2, 256), generator=g, device=cuda)
+    tr.lm_loss(model, tokens, cfg).backward()
+    kept = []
+    route = moe._route
+
+    def counting_route(logits, c):
+        out = route(logits, c)
+        kept.append(out[1].sum())
+        return out
+
+    start = tracing.position()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    moe._route = counting_route
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            tr.lm_loss(model, tokens, cfg).backward()
+            tr.lm_generate_batched(model, prompts, cfg, 4, max_len=512)
+            torch.cuda.synchronize()
+    finally:
+        moe._route = route
+    w = tracing.since(start)
+    events = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(tracing.PREFIX) and e.device_type() == torch.autograd.DeviceType.CPU:
+            events[e.name()[len(tracing.PREFIX):]].append(e.start_ns())
+    stored = collections.defaultdict(list)
+    for s in w.spans:
+        stored[s.name].append(s.start.ns)
+    assert set(stored) == {"loss", "attention", "moe", "attention.backward", "moe.backward", "generate",
+                           "prefill", "decode_step"}
+    for name, starts in stored.items():
+        assert len(events[name]) == len(starts), name
+        worst = max(abs(a - b) for a, b in zip(sorted(starts), sorted(events[name])))
+        assert worst <= 0.5e6, (name, worst)
+    by_id = {s.id: s for s in w.spans}
+    for s in w.spans:
+        assert s.device_ms() > 0, s.name
+        up = by_id.get(s.parent)
+        if up is not None and not s.name.endswith(".backward"):
+            assert tracing.elapsed_ms(up.start, s.start) >= 0 and tracing.elapsed_ms(s.end, up.end) >= 0
+    gen, = [s for s in w.spans if s.name == "generate"]
+    mark, = w.marks
+    prefill_ms = sum(s.device_ms() for s in w.spans if s.name == "prefill")
+    assert prefill_ms <= tracing.elapsed_ms(gen.start, mark.at) <= gen.device_ms()
+    assert w.counters["moe.tokens_kept"] == int(sum(kept))
+    assert any(k.startswith("dispatch.") and k.rsplit(".", 1)[1].startswith("cuda_") for k in w.counters)
