@@ -6,10 +6,11 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Print the card (nvidia-smi name and power limit) and the torch / CUDA
-   versions; build the nineteen CUDA libraries from csrc/ (one nvcc each,
+   versions; build the twenty CUDA libraries from csrc/ (one nvcc each,
    all started together) and print the seconds; beside them, nvcc -Xptxas
-   -v of bsr_dsd.cu prints the registers, spills and shared memory of the
-   sixteen bf16 TMA + wgmma kernels (a spill fails). The run's autotune cache
+   -v of bsr_dsd.cu and moe_grouped.cu prints the registers, spills and
+   shared memory of the sixteen bf16 TMA + wgmma kernels of the one and
+   the twelve of the other (a spill fails). The run's autotune cache
    (SPUTNIK_TPU_TORCH_TUNE_CACHE) is a file in a temporary directory of
    its own, removed at the end, so that no dispatch reads a winner tuned
    elsewhere.
@@ -35,7 +36,8 @@ Phases (any failure raises and the script exits non-zero):
    prompts, 32 new tokens each, through lm_generate_batched. Checks the
    token ids, that a second run gives the same tokens, that every prefill
    layer launched SDD, the two softmax kernels and DSD once (16 launches
-   each), and that parameters and caches live on the card.
+   each) and moe_grouped_gemm twice (the MoE FFN's two products, 32), and
+   that parameters and caches live on the card.
 4. The same model in fp32 (TF32 off): each request's prefill logits through
    the kernels against the plain versions (registry.forced_variant), max
    |diff| <= 1e-3;
@@ -53,7 +55,10 @@ Phases (any failure raises and the script exits non-zero):
    below the first, parameters, gradients and Adam state on the card, and
    the exact launches per step: fused 16 of each flash kernel and no
    sparse kernel; unfused 64 bsr_dsd_stream, 32 bsr_sdd, 16 of each
-   softmax kernel and no flash kernel. Prints the wall time per step (informational).
+   softmax kernel and no flash kernel; both 96 moe_grouped_gemm and 16
+   moe_split3 (the MoE FFN's 2 products forward, the split and 4 products
+   backward, per layer and sequence). Prints the wall time per step
+   (informational).
 7. The same model in fp32 (TF32 off), both routes: one backward of the
    batch loss through the kernels against the plain versions
    (registry.forced_variant), every parameter's gradient within
@@ -246,8 +251,22 @@ Phases (any failure raises and the script exits non-zero):
    through the real collectives on S = 1 partitions against one device;
    (f) the fold kernel's device time for all folds of one ring beside its
    plain version and bound.
+17. The grouped MoE FFN (moe_grouped.cu) at the MegaBlocks MoE-Small and
+   MoE-Medium widths, 64 experts of 128 slots, bf16: (a) every launch of
+   the forward and the backward (three layouts, four epilogues) in each of
+   the four tiles against gemm_reference, and moe_split3 bitwise against
+   split3_reference; (b) the FFN against the fp32 bmm
+   path (testing.moe_grouped_errors): the three-term split exact, each
+   backward product within 5e-5 of its max, y within 2^-8 of its max and
+   the bf16 gradients within 2^-7; (c) moe_forward at both widths through
+   the registry (cuda_grouped first fit, its forward under
+   set_sync_debug_mode("error"), exact launches) against
+   forced_variant("torch_reference"); (d) device times of the forward and
+   the forward + backward beside the plain version, bf16 torch.bmm and the
+   bound, and the split's (the kernel table's rows: MoE-Medium's forward
+   and split; their launches are phase 3's and phase 6's).
 
-The line before the last is {"kernels": [...]} (thirty-three kernels, each
+The line before the last is {"kernels": [...]} (thirty-five kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -289,6 +308,7 @@ from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_attention as fa
 from sputnik_tpu_torch.kernels import flash_mha as fm
+from sputnik_tpu_torch.kernels import moe_grouped as mgk
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.ops import csr as csr_ops
@@ -310,7 +330,8 @@ TRAIN_BATCH, TRAIN_STEPS, LR = 4, 5, 3e-3
 FLASH = tuple(fm.LAUNCHES)  # flash_mha_fwd, flash_mha_dq, flash_mha_dkv
 FFN = tuple(bsr_ffn.LAUNCHES)  # bsr_ffn_group, bsr_ffn_dropless
 SOFTMAX = tuple(bsm.LAUNCHES)  # bsr_softmax_stats, bsr_softmax_normalize, sdd_softmax
-KERNELS = ("bsr_dsd_stream", "bsr_sdd") + FLASH + FFN + SOFTMAX
+GROUPED = tuple(mgk.LAUNCHES)  # moe_grouped_gemm, moe_split3
+KERNELS = ("bsr_dsd_stream", "bsr_sdd") + FLASH + FFN + SOFTMAX + GROUPED
 # The MoE slice: bench/moe.py's default config (the serving LM's MoE layer).
 MOE = moe.MoEConfig(d_model=1024, d_ff=2048, n_experts=8, capacity=512, dtype=torch.bfloat16)
 # lr 3e-3, as the LM's training phase: at this width lr 1e-2 (examples/
@@ -594,13 +615,14 @@ def reset_launches() -> None:
     bsr_cres.LAUNCHES.update(dict.fromkeys(bsr_cres.LAUNCHES, 0))
     bsr_panel.LAUNCHES = bsr_cstack.LAUNCHES = 0
     fa.LAUNCHES.update(dict.fromkeys(fa.LAUNCHES, 0))
+    mgk.LAUNCHES.update(dict.fromkeys(GROUPED, 0))
 
 
 def launch_counts() -> dict:
-    """The counts of the kernels of phases 1-8 and 11 (the CSR kernels have
-    their own, ``sell.LAUNCHES``)."""
+    """The counts of the kernels of phases 1-8, 11 and 17 (the CSR kernels
+    have their own, ``sell.LAUNCHES``)."""
     return {"bsr_dsd_stream": bsr_dsd.LAUNCHES, "bsr_sdd": bsr_sdd.LAUNCHES, **fm.LAUNCHES,
-            **bsr_ffn.LAUNCHES, **bsm.LAUNCHES}
+            **bsr_ffn.LAUNCHES, **bsm.LAUNCHES, **mgk.LAUNCHES}
 
 
 def launches(**nonzero) -> dict:
@@ -608,16 +630,21 @@ def launches(**nonzero) -> dict:
     return {**dict.fromkeys(KERNELS, 0), **nonzero}
 
 
-def expected_train_launches(fused: bool, n_seq: int) -> dict:
+def expected_train_launches(fused: bool, n_seq: int, grouped: bool = True) -> dict:
     """Launches of one loss backward over ``n_seq`` sequences. Fused: one of
     each flash kernel per layer and sequence. Unfused, by ops/autodiff.py:
     the forward runs 1 SDD + the two softmax kernels + 1 DSD, the backward
     3 DSD/DDS launches (DSD's dB, SDD's dA and dB) + 1 SDD (DSD's dA) per
-    layer and sequence (the softmax's VJP is plain torch, as JAX's)."""
+    layer and sequence (the softmax's VJP is plain torch, as JAX's). With
+    ``grouped`` (a bf16 model: fp32 ones take the plain variant), the MoE
+    FFN's per layer and sequence: 2 grouped GEMMs forward, the cotangent's
+    split and 4 grouped GEMMs backward (moe_grouped)."""
     per = SERVE.n_layers * n_seq
+    moe_ffn = dict(moe_grouped_gemm=6 * per, moe_split3=per) if grouped else {}
     if fused:
-        return launches(**dict.fromkeys(FLASH, per))
-    return launches(bsr_dsd_stream=4 * per, bsr_sdd=2 * per, bsr_softmax_stats=per, bsr_softmax_normalize=per)
+        return launches(**dict.fromkeys(FLASH, per), **moe_ffn)
+    return launches(bsr_dsd_stream=4 * per, bsr_sdd=2 * per, bsr_softmax_stats=per, bsr_softmax_normalize=per,
+                    **moe_ffn)
 
 
 def batch_loss(lm, batch, cfg, topos):
@@ -676,7 +703,7 @@ def fp32_grads_against_plain(fused: bool, batch) -> None:
             loss = batch_loss(lm, batch, cfg, topos)
             loss.backward()
         torch.cuda.synchronize()
-        want = launches() if plain else expected_train_launches(fused, len(batch))
+        want = launches() if plain else expected_train_launches(fused, len(batch), grouped=False)
         check(launch_counts() == want, f"fp32 fused={fused} plain={plain}: launches {launch_counts()}")
         losses.append(loss.item())
         grads.append({n: p.grad.detach().clone() for n, p in lm.named_parameters()})
@@ -880,6 +907,183 @@ def moe_kernel_times(name_limit: str, yard: dict) -> dict:
               f"{pcall * 1e3:.2f} us call on {name_limit}; bound {yard[kname][0] * 1e3:.2f} us "
               f"({yard[kname][1]})", flush=True)
     return times
+
+
+# ---------------------------------------------------------------- phase 17 --
+# The grouped MoE FFN at the benchmark's per-layer shapes: MegaBlocks
+# MoE-Small and MoE-Medium (benchmark/configs/), 64 experts of 128 slots.
+GROUPED_WIDTHS = {"moe-small": (768, 3072), "moe-medium": (1024, 4096)}
+GROUPED_E, GROUPED_C = 64, 128
+
+
+def grouped_resources(report) -> None:
+    """-Xptxas -v of the twelve moe_grouped kernels (three layouts x four
+    tiles): registers, spills, static shared memory; a spill fails."""
+    rows = []
+    for name, regs, spill_st, spill_ld, smem in report:
+        found = re.search(r"moe_grouped_kernelILi(\d)ELi(\d+)ELi(\d+)E", name)
+        if found:
+            rows.append((tuple(int(v) for v in found.groups()), regs, spill_st, spill_ld, smem))
+    check(len(rows) == 12, f"-Xptxas -v found {len(rows)} kernels in moe_grouped.cu, not 12")
+    for (kind, bm, bn), regs, spill_st, spill_ld, smem in sorted(rows):
+        print(f"  ptxas moe_grouped kind {kind} BM {bm:>3} BN {bn}: {regs} registers, spill stores {spill_st} B, "
+              f"spill loads {spill_ld} B, {smem} B static smem", flush=True)
+    check(all(r[2] == r[3] == 0 for r in rows), "a moe_grouped kernel spills")
+
+
+def grouped_launch_cases(errors) -> None:
+    """(a) every launch of the forward and the backward (the three layouts,
+    the four epilogues) in each of the four tiles, E 3, C 128, d 256, F 512,
+    against gemm_reference (testing.moe_grouped_launch_error): fp32 outputs
+    within 1e-5 of their max, bf16 outputs within one bf16 ulp, the gelu'
+    product as prod_g_pre <= 1; the table's error is the largest absolute
+    one. Then moe_split3 of a cotangent against split3_reference (its
+    table's error: the largest absolute difference of a term)."""
+    worst = 0.0
+    for name, g in testing.moe_grouped_launches(torch.Generator(device=DEV).manual_seed(170)):
+        line = []
+        for tile in ((64, 128), (64, 256), (128, 128), (128, 256)):
+            err = testing.moe_grouped_launch_error(g, tile)
+            line.append(f"{tile[0]}x{tile[1]} {err:.2e}")
+            limit = 1e-5 if g.epi == mgk.EPI_F32 else 1.0
+            check(err <= limit, f"moe_grouped {name} in {tile}: error {err} > {limit}")
+            worst = max(worst, testing.moe_grouped_launch_error(g, tile, absolute=True))
+        print(f"  {name:<14} kind {g.kind} epi {g.epi}: {'; '.join(line)}", flush=True)
+    errors["moe_grouped_gemm"] = worst
+    g_y = testing.moe_grouped_inputs(torch.Generator(device=DEV).manual_seed(175), 4, 128, 256, 128)[3]
+    split_err = float((mgk.split3(g_y).float() - mgk.split3_reference(g_y).float()).abs().max())
+    print(f"  moe_split3 against split3_reference: max |diff| {split_err:.2e}", flush=True)
+    check(split_err == 0, f"moe_split3 differs from split3_reference by {split_err}")
+    errors["moe_split3"] = split_err
+
+
+def grouped_ffn_cases() -> None:
+    """(b) the FFN at both widths (testing.moe_grouped_errors, which states
+    each limit's reason): the three-term split exact; each backward product
+    with an fp32 output within 5e-5 of its max against fp32 bmm of the same
+    operands (g_pre within the rounding of dh to bf16); y within 2^-8 of its
+    max and the bf16 gradients within 2^-7 of theirs through the autograd
+    Function against the fp32 bmm path."""
+    for cfg_name, (d, f) in GROUPED_WIDTHS.items():
+        gen = torch.Generator(device=DEV).manual_seed(171)
+        x, w1, w2, g_y = testing.moe_grouped_inputs(gen, GROUPED_E, GROUPED_C, d, f)
+        errs = testing.moe_grouped_errors(x, w1, w2, g_y, GROUPED_E)
+        print(f"  {cfg_name} (d {d}, F {f}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+        check(errs["split"] == 0, f"{cfg_name}: the three-term split is not exact")
+        check(all(errs[k] <= 5e-5 for k in ("prod_dw2", "prod_dx", "prod_dw1")) and errs["prod_g_pre"] <= 1,
+              f"{cfg_name}: a backward product is off: {errs}")
+        check(errs["y"] <= 2 ** -8 and all(errs[k] <= 2 ** -7 for k in ("dx", "dw1", "dw2")),
+              f"{cfg_name}: y or a bf16 gradient is off: {errs}")
+        del x, w1, w2, g_y
+        torch.cuda.empty_cache()
+
+
+def grouped_moe_forward() -> None:
+    """(c) moe_forward at both widths on 8192 routed tokens (capacity 128:
+    most are dropped), through the registry: cuda_grouped first fit, its
+    forward under set_sync_debug_mode("error"), 2 launches forward and 5
+    backward (split + 4), y within 2^-8 of its max and every gradient
+    within 2^-7 of its max against forced_variant("torch_reference") (the
+    limits of (b))."""
+    for cfg_name, (d, f) in GROUPED_WIDTHS.items():
+        cfg = moe.MoEConfig(d_model=d, d_ff=f, n_experts=GROUPED_E, capacity=GROUPED_C, dtype=torch.bfloat16)
+        params = moe.init_moe_params(cfg, torch.Generator(device=DEV).manual_seed(172), device=DEV)
+        x = torch.randn((8192, d), generator=torch.Generator(device=DEV).manual_seed(173), device=DEV)
+        x_perm = torch.zeros((cfg.padded_tokens, d), dtype=torch.bfloat16, device=DEV)
+        name = registry.dispatch_name("moe_grouped_ffn", x_perm, params.w1, params.w2, GROUPED_E)
+        check(name == "cuda_grouped", f"{cfg_name}: moe_grouped_ffn first fit is {name}")
+        outs = []
+        for plain in (False, True):
+            params.zero_grad(set_to_none=True)
+            xg = x.clone().requires_grad_()
+            with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                before = dict(mgk.LAUNCHES)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    y, aux = moe.moe_forward(params, xg, cfg)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                mid = dict(mgk.LAUNCHES)
+                (torch.mean(y.float() ** 2) + 0.01 * aux).backward()
+                torch.cuda.synchronize()
+            fwd = {k: mid[k] - before[k] for k in before}
+            bwd = {k: mgk.LAUNCHES[k] - mid[k] for k in before}
+            want = ({"moe_grouped_gemm": 0, "moe_split3": 0},) * 2 if plain else (
+                {"moe_grouped_gemm": 2, "moe_split3": 0}, {"moe_grouped_gemm": 4, "moe_split3": 1})
+            check((fwd, bwd) == want, f"{cfg_name} plain={plain}: launches {fwd}, {bwd}, expected {want}")
+            outs.append({"y": y.detach(), "x": xg.grad, **{n: p.grad for n, p in params.named_parameters()}})
+        errs = {k: testing.rel_max_error(outs[0][k], outs[1][k]) for k in outs[1]}
+        kept = int((outs[1]["y"].abs().amax(-1) > 0).sum())
+        print(f"  {cfg_name}: {kept} of 8192 tokens kept; kernels against plain, max |diff| / max: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+        check(errs["y"] <= 2 ** -8 and all(v <= 2 ** -7 for v in errs.values()),
+              f"{cfg_name}: moe_forward differs from the plain path: {errs}")
+        del params, outs
+        torch.cuda.empty_cache()
+
+
+def grouped_times(name_limit: str) -> dict:
+    """(d) device times at both widths: the forward (two launches, no
+    pre-activation kept) and the forward + backward (seven launches), the
+    plain version's (fp32 bmm on fp32 copies, its autograd backward, eager)
+    and bf16 torch.bmm on permuted weights (the library yardstick, not
+    exact in the backward); bounds from the useful work, every input read
+    and every output written once. Returns phase 17's row for the kernel
+    table (the MoE-Medium forward)."""
+    row = None
+    for cfg_name, (d, f) in GROUPED_WIDTHS.items():
+        e, c = GROUPED_E, GROUPED_C
+        x, w1, w2, g_y = testing.moe_grouped_inputs(torch.Generator(device=DEV).manual_seed(174), e, c, d, f)
+        flops = 2 * e * c * d * f
+        fwd_bytes = e * c * d * 2 + 2 * d * e * f * 2 + e * c * d * 4
+        both_bytes = fwd_bytes + e * c * d * 4 + e * c * d * 2 + 2 * d * e * f * 2  # + g_y, dx, dw1, dw2
+        bounds = {"forward": bound_ms(fwd_bytes, 2 * flops, BF16_FLOPS),
+                  "forward + backward": bound_ms(both_bytes, 6 * flops, BF16_FLOPS)}
+        with torch.no_grad():
+            kern_fwd = time_ms(lambda: mgk.ffn_forward(x, w1, w2, e, save_pre=False), iters=50)[0]
+            plain_fwd = time_ms(lambda: mgk.grouped_ffn_reference(x, w1, w2, e), iters=20)[0]
+            kern_both = time_ms(lambda: mgk.ffn_backward(g_y, x, w1, w2, *mgk.ffn_forward(
+                x, w1, w2, e, save_pre=True)[1:], e), iters=20)[0]
+            xg = x.reshape(e, c, d)
+            w1g = w1.reshape(d, e, f).permute(1, 0, 2).contiguous()
+            w2g = w2.reshape(e, f, d)
+            lib_fwd = time_ms(lambda: torch.bmm(torch.bmm(xg, w1g), w2g), iters=50)[0]
+        leaves = [t.clone().requires_grad_() for t in (x, w1, w2)]
+
+        def plain_both():
+            y = mgk.grouped_ffn_reference(*leaves, e)
+            y.backward(g_y)
+
+        lib_leaves = [t.clone().requires_grad_() for t in (xg, w1g, w2g)]
+
+        def lib_both():
+            y = torch.bmm(torch.bmm(lib_leaves[0], lib_leaves[1]), lib_leaves[2])
+            y.backward(g_y.reshape(e, c, d).to(torch.bfloat16))
+
+        plain_both_ms = time_ms_eager(plain_both, warmup=2, iters=5)
+        lib_both_ms = time_ms_eager(lib_both, warmup=3, iters=20)
+        for label, kern, plain, lib in (("forward", kern_fwd, plain_fwd, lib_fwd),
+                                        ("forward + backward", kern_both, plain_both_ms, lib_both_ms)):
+            bound, by = bounds[label]
+            useful = (2 if label == "forward" else 6) * flops
+            print(f"  moe_grouped {cfg_name} {label}: kernels {kern * 1e3:.2f} us "
+                  f"({useful / kern / 1e9:.1f} TFLOP/s), bound {bound * 1e3:.2f} us ({by}; "
+                  f"{100 * bound / kern:.1f}% of it), plain {plain * 1e3:.2f} us, library (bf16 torch.bmm) "
+                  f"{lib * 1e3:.2f} us on {name_limit}", flush=True)
+            if cfg_name == "moe-medium" and label == "forward":
+                row = {"moe_grouped_gemm": (kern, plain, lib, bound, by)}
+        if cfg_name == "moe-medium":
+            # The split: the fp32 cotangent read, its three bf16 terms written.
+            kern = time_ms(lambda: mgk.split3(g_y), iters=50)[0]
+            plain = time_ms(lambda: mgk.split3_reference(g_y), iters=50)[0]
+            bound, by = bound_ms(g_y.numel() * (4 + 3 * 2), 0, BF16_FLOPS)
+            print(f"  moe_split3 {cfg_name} ({e * c} x {d}): kernel {kern * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+                  f"({by}), plain {plain * 1e3:.2f} us, library: none on {name_limit}", flush=True)
+            row["moe_split3"] = (kern, plain, None, bound, by)
+        del x, w1, w2, g_y, leaves, lib_leaves, xg, w1g, w2g
+        torch.cuda.empty_cache()
+    return row
 
 
 # ------------------------------------------------- bounds and library calls --
@@ -1761,8 +1965,9 @@ def default_config_lm() -> None:
                     loss.backward()
                 torch.cuda.synchronize()
                 n = 0 if plain else cfg.n_layers
-                want = launches(**dict.fromkeys(FLASH, n)) if fused else \
-                    launches(bsr_softmax_stats=n, bsr_softmax_normalize=n)
+                g = n if dtype == torch.bfloat16 else 0  # bf16: the grouped MoE FFN's kernels
+                want = launches(**dict.fromkeys(FLASH, n), moe_grouped_gemm=6 * g, moe_split3=g) if fused else \
+                    launches(bsr_softmax_stats=n, bsr_softmax_normalize=n, moe_grouped_gemm=6 * g, moe_split3=g)
                 check(launch_counts() == want, f"default config fused={fused} plain={plain}: launches "
                                                f"{launch_counts()}, expected {want}")
                 losses.append(loss.item())
@@ -1841,13 +2046,13 @@ def topk_serving(name_limit: str) -> None:
     """(c): lm_generate_batched(mode="topk", k_pages=4) at the serving model,
     4 requests x 1024-token prompts x 32 new tokens, greedy (twice, equal)
     and at temperature 0.8 from a seeded generator (twice, equal); each
-    prefill layer launches SDD, the two softmax kernels and DSD once, the
-    top-k decode steps no kernel."""
+    prefill layer launches SDD, the two softmax kernels and DSD once and
+    the grouped MoE FFN's two GEMMs, the top-k decode steps no kernel."""
     lm = tr.init_lm_params(SERVE, torch.Generator(device=DEV).manual_seed(0), device=DEV)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(0, SERVE.vocab, (N_REQUESTS, PROMPT))).to(DEV)
     kw = dict(mode="topk", k_pages=TOPK_PAGES)
     n = SERVE.n_layers * N_REQUESTS
-    want = launches(bsr_sdd=n, bsr_dsd_stream=n, bsr_softmax_stats=n, bsr_softmax_normalize=n)
+    want = launches(bsr_sdd=n, bsr_dsd_stream=n, bsr_softmax_stats=n, bsr_softmax_normalize=n, moe_grouped_gemm=2 * n)
     for label, extra in (("greedy", {}), ("temperature 0.8", dict(temperature=0.8))):
         runs, walls = [], []
         for _ in range(2):
@@ -3444,12 +3649,14 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     builds = (bsr_dsd._kernel, bsr_sdd._kernel, fm._lib, bsr_ffn._lib, sell._lib, bsr_flat._kernel,
               bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel, bsr_pipe._kernel,
               mxu_probe._lib, bsr_qstream._qkernel, bsr_cres._lib, bsr_sdd._bres_kernel, bsr_panel._lib,
-              bsr_cstack._kernel, fa._fold_lib)
-    with concurrent.futures.ThreadPoolExecutor(len(builds) + 1) as pool:  # one nvcc per source, together
+              bsr_cstack._kernel, fa._fold_lib, mgk._lib)
+    with concurrent.futures.ThreadPoolExecutor(len(builds) + 2) as pool:  # one nvcc per source, together
         report = pool.submit(_build.ptxas_report, "bsr_dsd")
+        grouped_report = pool.submit(_build.ptxas_report, "moe_grouped")
         for built in [pool.submit(f) for f in builds]:
             built.result()
         wgmma_resources(report.result())
+        grouped_resources(grouped_report.result())
     print(f"kernels built and loaded in {time.perf_counter() - start:.1f} s "
           f"(per library: {_build.build_seconds})", flush=True)
 
@@ -3476,8 +3683,9 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     main_launches = launch_counts()
     expected = SERVE.n_layers * N_REQUESTS
     check(main_launches == launches(bsr_dsd_stream=expected, bsr_sdd=expected, bsr_softmax_stats=expected,
-                                    bsr_softmax_normalize=expected),
-          f"kernel launches {main_launches}, expected {expected} of SDD, DSD and the softmax kernels and no other")
+                                    bsr_softmax_normalize=expected, moe_grouped_gemm=2 * expected),
+          f"kernel launches {main_launches}, expected {expected} of SDD, DSD and the softmax kernels, "
+          f"{2 * expected} of moe_grouped_gemm (the MoE FFN's two products) and no other")
     check(tuple(tokens.shape) == (N_REQUESTS, N_NEW), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < SERVE.vocab)).all()), "token id out of range")
     start = time.perf_counter()
@@ -3604,6 +3812,7 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
         train_launches[fused] = train_steps(fused, batch, name_limit)
         torch.cuda.empty_cache()
     main_launches.update({k: train_launches[True][k] for k in FLASH})
+    main_launches["moe_split3"] = train_launches[True]["moe_split3"]
 
     print("== phase 7: training slice, fp32: gradients through the kernels against plain versions",
           flush=True)
@@ -3845,6 +4054,18 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     p16_times = fold_kernel_times(np.random.default_rng(55), name_limit)
     torch.cuda.empty_cache()
 
+    print(f"== phase 17: the grouped MoE FFN (moe_grouped) at the MegaBlocks widths, {GROUPED_E} experts of "
+          f"{GROUPED_C} slots, bf16", flush=True)
+    print("(a) every launch in every tile against gemm_reference", flush=True)
+    grouped_launch_cases(errors)
+    print("(b) the FFN against the fp32 bmm path", flush=True)
+    grouped_ffn_cases()
+    print("(c) moe_forward through the registry op moe_grouped_ffn", flush=True)
+    grouped_moe_forward()
+    print("(d) times (CUDA-graph device time; the plain and library backward eager)", flush=True)
+    p17_times = grouped_times(name_limit)
+    torch.cuda.empty_cache()
+
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
     # runs of phase 8 for the FFN kernels, the fine-tune and the attention
@@ -3860,7 +4081,8 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     # for bsr_qstream, bsr_cres, bsr_gres and bsr_sdd_bres, and the
     # benchmark path of phase 15 (c)-(e) for bsr_panel and bsr_cstack, and
     # the ring and sequence-parallel attention of phase 16 (b)-(c) for
-    # flash_band_fold.
+    # flash_band_fold, and the serving run of phase 3 for moe_grouped_gemm
+    # and the fused training run of phase 6 for moe_split3.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -3896,6 +4118,10 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
         "bsr_panel": ("sputnik_tpu_torch/csrc/bsr_panel.cu", "sputnik_tpu/kernels/bsr_panel.py:108"),
         "bsr_cstack": ("sputnik_tpu_torch/csrc/bsr_cstack.cu", "sputnik_tpu/kernels/bsr_cstack.py:52"),
         "flash_band_fold": ("sputnik_tpu_torch/csrc/flash_fold.cu", "sputnik_tpu/kernels/flash_attention.py:418"),
+        "moe_grouped_gemm": ("sputnik_tpu_torch/csrc/moe_grouped.cu",
+                             "none (JAX's two einsums, sputnik_tpu/models/moe.py:201-205)"),
+        "moe_split3": ("sputnik_tpu_torch/csrc/moe_grouped.cu",
+                       "none (the backward of JAX's two einsums takes the fp32 cotangent whole)"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
@@ -3907,6 +4133,7 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     measured.update(p14_times)
     measured.update(p15_times)
     measured.update(p16_times)
+    measured.update(p17_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

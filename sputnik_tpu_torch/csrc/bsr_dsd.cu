@@ -307,43 +307,6 @@ __global__ void __launch_bounds__(Cfg<BM, BN>::THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the CUDA driver the runtime already loaded (the
-// library links no libcuda). Host-only: it reads no device memory.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                                       &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 tensor map over (d2, d1, d0) elements (d0 innermost) with row
-// strides s1, s2 in elements and a (b1 x b0) box, 128-byte swizzle.
-bool encode(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint64_t s1, uint64_t s2,
-            uint32_t b0, uint32_t b1) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {s1 * 2, s2 * 2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BM, int BN, bool TA, bool TB>
 int wgmma_launch(const CUtensorMap& ta_map, const CUtensorMap& tb_map, const WgParams& p, dim3 grid,
                  cudaStream_t st) {
@@ -382,11 +345,11 @@ int launch_bf16(const DsdParams& p, int n_groups, int n_cols, int batch, int nnz
   CUtensorMap a_map, b_map;
   // The sparse data: (blocks, 128, 128), all batch entries' blocks in a row.
   const uint64_t blocks = uint64_t(nnz) * (a_batched ? batch : 1);
-  if (!encode(&a_map, p.a, 128, 128, blocks, 128, 128 * 128, a_box0, a_box1)) return bad;
+  if (!hopper::encode(&a_map, p.a, 128, 128, blocks, 128, 128 * 128, a_box0, a_box1)) return bad;
   // The dense operand as stored: (batch, K, N) or, transposed, (batch, N, K).
   const uint64_t inner = tb ? k_dim : n_cols, outer = tb ? n_cols : k_dim;
   const uint64_t b_stride2 = b_batched ? uint64_t(p.b_batch_stride) : uint64_t(p.ldb) * outer;
-  if (!encode(&b_map, p.b, inner, outer, b_batched ? batch : 1, p.ldb, b_stride2, b_box0, b_box1)) return bad;
+  if (!hopper::encode(&b_map, p.b, inner, outer, b_batched ? batch : 1, p.ldb, b_stride2, b_box0, b_box1)) return bad;
   const WgParams wp{p.group_offsets, p.dep_ids, p.data_ids, p.c, p.c_row_stride, p.c_col_stride,
                     p.c_batch_stride, a_batched ? nnz : 0, b_batched ? 1 : 0, p.out_kind, p.out_scale};
   const dim3 grid(n_cols / bn, n_groups * (128 / bm), batch);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks as inline PTX, shared by the kernels whose
-// mainloop is a TMA ring feeding wgmma (bsr_dsd.cu's bf16 path):
+// mainloop is a TMA ring feeding wgmma (bsr_dsd.cu's bf16 path,
+// moe_grouped.cu):
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count,
 //   and the parity wait of a producer / consumer ring;
@@ -12,10 +13,10 @@
 //   registers (N = 128 and 256).
 //
 // No CUTLASS or CuTe header: the repo's sources are all a build needs. The
-// tensor maps are encoded on the host (cuTensorMapEncodeTiled, fetched
-// through cudaGetDriverEntryPoint, since the libraries link no libcuda)
-// and passed as __grid_constant__ kernel parameters; <cuda.h> is included
-// for the CUtensorMap type and its enums only.
+// tensor maps are encoded on the host (encode(): cuTensorMapEncodeTiled,
+// fetched through cudaGetDriverEntryPoint, since the libraries link no
+// libcuda) and passed as __grid_constant__ kernel parameters;
+// <cuda.h> is included for the CUtensorMap type and its enums only.
 #pragma once
 
 #include <cuda.h>
@@ -202,6 +203,44 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 // 32), id 1..15; id 0 is __syncthreads().
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------ host: tensor maps --
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver the runtime already loaded (the
+// library links no libcuda). Host-only: it reads no device memory.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                                       &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 tensor map over (d2, d1, d0) elements (d0 innermost) with row
+// strides s1, s2 in elements and a (b1 x b0) box, 128-byte swizzle.
+inline bool encode(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2, uint64_t s1,
+                   uint64_t s2, uint32_t b0, uint32_t b1) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1 * 2, s2 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

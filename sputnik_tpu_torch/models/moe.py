@@ -5,9 +5,11 @@ capacity slots (tokens past an expert's capacity are dropped) and runs the
 expert FFN by ``impl``:
 
 * ``"grouped"``: with fixed capacity the block-diagonal expert product is
-  one batched GEMM per projection. Products whose fp32 result the JAX
-  package keeps (``preferred_element_type=float32``) are taken on fp32
-  copies of the operands, so a bf16 model routes as the JAX one does.
+  one grouped GEMM per projection, the registry's op ``moe_grouped_ffn``
+  (``kernels/moe_grouped.py``): bf16 problems on the card run the
+  ``moe_grouped`` kernels on the bf16 weights in place with fp32
+  accumulation (JAX's ``preferred_element_type=float32``), forward and
+  backward; the rest take the plain version, fp32 ``bmm`` on fp32 copies.
 * ``"bsr"``: the block-sparse path on the block-diagonal topology, one
   fused SDD -> gelu -> DSD kernel (``kernels/bsr_ffn.py``) when
   ``plan_group_ffn`` finds the topology group-structured, else the unfused
@@ -40,7 +42,8 @@ from torch import nn
 
 from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix
-from sputnik_tpu_torch.kernels import bsr_ffn
+from sputnik_tpu_torch.kernels import bsr_ffn, moe_grouped  # noqa: F401  (registers moe_grouped_ffn)
+from sputnik_tpu_torch.ops import registry
 from sputnik_tpu_torch.utils import tracing
 from sputnik_tpu_torch.utils.device import resolve_device
 
@@ -234,12 +237,7 @@ def moe_forward(
     x_perm = x_perm[: cfg.padded_tokens]
 
     if impl == "grouped":
-        e, c, d, f = cfg.n_experts, cfg.capacity, cfg.d_model, cfg.d_ff
-        xg = x_perm.reshape(e, c, d).float()
-        w1 = params.w1.reshape(d, e, f).permute(1, 0, 2).float()  # (e, d, f)
-        w2 = params.w2.reshape(e, f, d).float()
-        h = F.gelu(torch.bmm(xg, w1), approximate="tanh").to(cfg.dtype)
-        y = torch.bmm(h.float(), w2).reshape(e * c, d)[slot]
+        y = registry.dispatch("moe_grouped_ffn", x_perm, params.w1, params.w2, cfg.n_experts)[slot]  # fp32
         return (y * (prob * keep.float())[:, None]).to(x.dtype), aux
 
     plan = bsr_ffn.plan_group_ffn(topology) if impl == "bsr" else None

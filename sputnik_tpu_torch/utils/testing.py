@@ -27,6 +27,7 @@ from sputnik_tpu_torch.utils.device import resolve_device
 __all__ = [
     "random_csr_topology", "random_csr", "random_bsr", "random_bsr_topology",
     "bsr_from_blocks", "dense_oracle_matmul", "bf16_ulp_excess", "ATOL", "run_spmd", "parallel_cases",
+    "moe_grouped_errors", "moe_grouped_inputs", "moe_grouped_launches", "moe_grouped_launch_error", "rel_max_error",
 ]
 
 ATOL = 5e-2  # the reference's NanSensitiveFloatNear tolerance
@@ -89,6 +90,150 @@ def bf16_ulp_excess(got: torch.Tensor, want: torch.Tensor, floor: float = 2.0 **
     mag = torch.maximum(torch.maximum(got.abs(), want.abs()), floor * want.abs().max())
     ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=torch.finfo(torch.float32).tiny))) - 7)
     return float(((got - want).abs() / ulp).max())
+
+
+def moe_grouped_errors(x, w1, w2, g_y, experts: int) -> dict:
+    """The grouped MoE FFN's kernels (``kernels/moe_grouped.py``) against
+    their plain version on the card, for capacity slots ``x`` (E * C, d,
+    bf16), weights ``w1`` / ``w2`` and the fp32 cotangent ``g_y`` of y. Each
+    entry is max |got - want| / max |want| unless named otherwise:
+
+    * ``y``, ``dx``, ``dw1``, ``dw2``: through the autograd Function against
+      autograd of the fp32 ``bmm`` path. Both round h and dh to bf16, and an
+      element whose fp32 value lies that close to a rounding boundary may
+      round the other way on the other side: one bf16 ulp of one term,
+      which in dw1 and dw2 (sums of C = 128 terms) is up to 2^-8 of the
+      result's largest element;
+    * ``split``: 0 when the three-term split of ``g_y`` sums to it exactly;
+    * ``prod_dw2``, ``prod_dx``, ``prod_dw1``: each backward product with an
+      fp32 output against fp32 ``bmm`` (TF32 off) of the same operands (the
+      kernel's own g_pre for dx and dw1): fp32 summation order alone when
+      the split is exact, and the tensor cores' fp32 accumulation, which
+      rounds toward zero (against an fp64 oracle on the H100 a mean
+      relative bias of -3e-9 x K, -1.2e-5 at K = 4096, where fp32 ``bmm``
+      shows 1e-8);
+    * ``prod_g_pre``: the fused dh -> gelu' product against
+      ``gelu_backward(bf16(g_y w2^T), pre)``, as max of |diff| / (2^-7 |want|
+      + 1e-5 max |want|): dh is rounded to bf16 on both sides, and a sum
+      taken in another order may round to the neighbouring bf16 value.
+    """
+    from sputnik_tpu_torch.kernels import moe_grouped as mg
+
+    out = {}
+    results = []
+    for fn in (mg.grouped_ffn, mg.grouped_ffn_reference):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w1, w2)]
+        y = fn(*leaves, experts)
+        y.backward(g_y)
+        results.append([y.detach()] + [t.grad for t in leaves])
+    for name, got, want in zip(("y", "dx", "dw1", "dw2"), *results):
+        out[name] = rel_max_error(got, want)
+
+    c, d, f = x.shape[0] // experts, x.shape[1], w1.shape[1] // experts
+    with torch.no_grad():
+        _, h, pre = mg.ffn_forward(x, w1, w2, experts, save_pre=True)
+        gy3 = mg.split3(g_y.contiguous())
+        out["split"] = 0.0 if torch.equal(gy3.float().sum(0), g_y) else float("inf")
+        dx, dw1, dw2 = mg.ffn_backward(g_y, x, w1, w2, h, pre, experts, grad_dtype=torch.float32)
+        gp3 = torch.empty((3, x.shape[0], f), dtype=torch.bfloat16, device=x.device)
+        mg.gemm(mg.backward_gemms(gy3, x, w1, w2, h, pre, gp3, experts)[0])
+        g_pre = gp3.float().sum(0)
+        gy = g_y.reshape(experts, c, d)
+        w1e = w1.float().reshape(d, experts, f).permute(1, 0, 2)  # (E, d, F)
+        w2e = w2.float().reshape(experts, f, d)
+        dh = torch.bmm(gy, w2e.transpose(1, 2)).reshape(-1, f)
+        want = torch.ops.aten.gelu_backward(dh.to(torch.bfloat16).float(), pre, approximate="tanh")
+        scale = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+        out["prod_g_pre"] = float(((g_pre - want).abs() / scale.clamp(min=torch.finfo(torch.float32).tiny)).max())
+        gp = g_pre.reshape(experts, c, f)
+        wants = {
+            "prod_dw2": torch.bmm(h.float().reshape(experts, c, f).transpose(1, 2), gy).reshape(-1, d),
+            "prod_dx": torch.bmm(gp, w1e.transpose(1, 2)).reshape(-1, d),
+            "prod_dw1": torch.bmm(x.float().reshape(experts, c, d).transpose(1, 2), gp).permute(1, 0, 2)
+            .reshape(d, -1),
+        }
+        for name, got in (("prod_dw2", dw2), ("prod_dx", dx), ("prod_dw1", dw1)):
+            out[name] = rel_max_error(got, wants[name])
+    return out
+
+
+def rel_max_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, in fp32."""
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+
+
+def moe_grouped_inputs(gen: torch.Generator, e: int, c: int, d: int, f: int):
+    """(x, w1, w2, g_y) of the grouped MoE FFN on ``gen``'s device at the
+    LM's scales: the last quarter of every expert's ``c`` slots empty
+    (dropped or never filled), expert e / 2 with no token at all, and no
+    cotangent on an empty slot; x, w1, w2 bf16, g_y fp32."""
+    dev = gen.device
+    x = torch.randn((e, c, d), generator=gen, device=dev)
+    x[:, c - c // 4:] = 0
+    x[e // 2] = 0
+    w1 = (torch.randn((d, e * f), generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
+    w2 = (torch.randn((e * f, d), generator=gen, device=dev) * f ** -0.5).to(torch.bfloat16)
+    g_y = torch.randn((e, c, d), generator=gen, device=dev) * 1e-3 * (x.abs().amax(-1, keepdim=True) > 0)
+    return x.reshape(e * c, d).to(torch.bfloat16), w1, w2, g_y.reshape(e * c, d)
+
+
+def moe_grouped_launches(gen: torch.Generator, e: int = 3, c: int = 128, d: int = 256, f: int = 512) -> list:
+    """[(name, Gemm)]: every launch of the grouped MoE FFN's forward and
+    backward (the three layouts, the four epilogues) at E ``e``, C ``c``,
+    d ``d``, F ``f`` on :func:`moe_grouped_inputs` from ``gen``, each with
+    fresh outputs and the operands the kernels computed before it."""
+    from sputnik_tpu_torch.kernels import moe_grouped as mg
+
+    x, w1, w2, g_y = moe_grouped_inputs(gen, e, c, d, f)
+    _, h, pre = mg.ffn_forward(x, w1, w2, e, save_pre=True)
+    gy3 = mg.split3(g_y)
+    gp3 = torch.empty((3, x.shape[0], f), dtype=torch.bfloat16, device=x.device)
+    mg.gemm(mg.backward_gemms(gy3, x, w1, w2, h, pre, gp3, e)[0])
+    grads = [torch.empty(t.shape, dtype=torch.bfloat16, device=x.device) for t in (x, w1, w2)]
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    # h and pre are the first launch's outputs and the later ones' operands:
+    # moe_grouped_launch_error gives each launch fresh outputs, so the
+    # operands keep the values computed above.
+    gemms = (mg.forward_gemms(x, w1, w2, e, h, y, pre)
+             + mg.backward_gemms(gy3, x, w1, w2, h, pre, gp3, e, *grads))
+    return list(zip(("h (gelu)", "y (fp32)", "g_pre (gelu')", "dw2", "dx", "dw1"), gemms))
+
+
+def moe_grouped_launch_error(g, tile, absolute: bool = False) -> float:
+    """One launch of the grouped MoE kernel (a ``kernels.moe_grouped.Gemm``)
+    in ``tile`` against ``gemm_reference`` on the same operands: fp32
+    outputs as max |diff| / max |want|, bf16 ones in :func:`bf16_ulp_excess`,
+    the gelu' epilogue's three terms summed as in
+    :func:`moe_grouped_errors`'s ``prod_g_pre``; with ``absolute``, max
+    |diff| of every output (the three terms summed). Outputs start as NaN,
+    so an element the kernel leaves unwritten shows; raises ``ValueError``
+    where ``gemm_reference``'s own output is not finite (an operand that was
+    never computed, a fault of the caller and not of the kernel)."""
+    import dataclasses
+    import functools
+
+    from sputnik_tpu_torch.kernels import moe_grouped as mg
+
+    outs = [torch.full_like(g.out, float("nan")) for _ in range(2)]
+    auxes = [None if g.aux is None or g.epi == mg.EPI_GELU_GRAD else torch.full_like(g.aux, float("nan"))
+             for _ in range(2)]
+    for out, aux, run in zip(outs, auxes, (functools.partial(mg.gemm, tile=tile), mg.gemm_reference)):
+        run(dataclasses.replace(g, out=out, aux=g.aux if aux is None else aux))
+    got, want = outs
+    if g.epi == mg.EPI_GELU_GRAD:
+        got, want = got.float().sum(0), want.float().sum(0)
+    if not bool(torch.isfinite(want.float()).all()):
+        raise ValueError("moe_grouped_launch_error: the plain version's output is not finite; an operand is")
+    if absolute:
+        err = float((got.float() - want.float()).abs().max())
+        return err if auxes[0] is None else max(err, float((auxes[0] - auxes[1]).abs().max()))
+    if g.epi == mg.EPI_GELU_GRAD:
+        scale = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+        return float(((got - want).abs() / scale).max())
+    err = rel_max_error(got, want) if got.dtype == torch.float32 else bf16_ulp_excess(got, want)
+    if auxes[0] is not None:
+        err = max(err, rel_max_error(auxes[0], auxes[1]))
+    return err
 
 
 def random_csr_topology(rng, rows, cols, nnz, **kw):

@@ -26,7 +26,10 @@ panel-resident and column-stacked kernels (against their plain versions,
 run to run, the new variant= routes, bench.tune and bench.headline), and
 the distributed slice (the band fold kernel on every fold of a ring against
 its plain version, ring and sequence-parallel attention through the
-per-rank bodies, and the raw-CSR softmax of a transpose built on the card).
+per-rank bodies, and the raw-CSR softmax of a transpose built on the card),
+and the grouped MoE FFN's kernels (every launch in every tile against its
+plain version, the FFN at the MegaBlocks widths against the fp32 bmm path,
+and moe_forward's route through them).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -49,7 +52,7 @@ from sputnik_tpu_torch.formats import BlockSparseMatrix, SellMatrix, csr_from_de
 from sputnik_tpu_torch.bench import dss as dss_bench
 from sputnik_tpu_torch.bench import headline, mxu_probe, tune
 from sputnik_tpu_torch.kernels import (bsr_cres, bsr_cstack, bsr_dsd, bsr_dss, bsr_ffn, bsr_flat, bsr_panel, bsr_qstream,
-                                       bsr_sdd, bsr_small, bsr_ssd, reference, sell)
+                                       bsr_sdd, bsr_small, bsr_ssd, moe_grouped, reference, sell)
 from sputnik_tpu_torch.kernels import bsr_dsd_pipelined as bsr_pipe
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
 from sputnik_tpu_torch.kernels import flash_attention as fa
@@ -370,6 +373,95 @@ def test_moe_forwards_on_card_match_cpu(cuda, impl):
         for name, g in [*outs[1][2].items(), ("x", outs[1][3])]:
             got = outs[0][2][name] if name != "x" else outs[0][3]
             assert float(np.abs(got - g).max()) <= 1e-3 * float(np.abs(g).max()) + 1e-6, name
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (64, 256), (128, 128), (128, 256)])
+def test_moe_grouped_launches_match_reference(cuda, tile):
+    """Every launch of the grouped MoE FFN (three layouts, four epilogues)
+    in each tile against gemm_reference on the same operands: fp32 outputs
+    within 1e-5 of their max (summation order), bf16 outputs within one bf16
+    ulp (their rounding), the gelu' epilogue within the rounding of dh to
+    bf16 (testing.moe_grouped_launch_error)."""
+    before = moe_grouped.LAUNCHES["moe_grouped_gemm"]
+    launches = testing.moe_grouped_launches(torch.Generator(device=cuda).manual_seed(15))
+    for name, g in launches:
+        err = testing.moe_grouped_launch_error(g, tile)
+        assert err <= (1e-5 if g.epi == moe_grouped.EPI_F32 else 1.0), (name, err)
+    assert moe_grouped.LAUNCHES["moe_grouped_gemm"] == before + 3 + len(launches)
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (64, 256), (128, 128), (128, 256)])
+def test_moe_grouped_launches_repeat_bitwise(cuda, tile):
+    """Every launch of the grouped MoE FFN at MoE-Small's per-layer shapes
+    (E 64, C 128, d 768, F 3072; on the main path its y and dx launches take
+    64-row tiles) ten times in each tile, each into NaN-filled outputs:
+    finite and bitwise equal every time, so no element is left unwritten
+    and no run races between the ring and the epilogue."""
+    for name, g in testing.moe_grouped_launches(torch.Generator(device=cuda).manual_seed(19), 64, 128, 768, 3072):
+        first = None
+        for _ in range(10):
+            out = torch.full_like(g.out, float("nan"))
+            aux = None if g.aux is None or g.epi == moe_grouped.EPI_GELU_GRAD else torch.full_like(g.aux, float("nan"))
+            moe_grouped.gemm(dataclasses.replace(g, out=out, aux=g.aux if aux is None else aux), tile)
+            if first is None:
+                first = (out, aux)
+                assert bool(torch.isfinite(out.float()).all()) and (aux is None or bool(torch.isfinite(aux).all())), \
+                    name
+            else:
+                assert torch.equal(out, first[0]) and (aux is None or torch.equal(aux, first[1])), name
+
+
+@pytest.mark.parametrize("d,d_ff", [(768, 3072), (1024, 4096)])  # MegaBlocks MoE-Small, MoE-Medium
+def test_moe_grouped_kernel_matches_plain(cuda, d, d_ff):
+    """The grouped FFN's kernels against the fp32 bmm path at 64 experts of
+    128 slots, a quarter of each expert's slots empty and one expert with
+    none (testing.moe_grouped_errors states each limit's reason): the
+    three-term split exact; each backward product within 5e-5 of its max
+    against fp32 bmm of the same operands (the tensor cores' fp32
+    accumulation rounds toward zero); y within 2^-8 of its max and the
+    bf16 gradients within 2^-7 of theirs (h and dh are rounded to bf16 on
+    both sides, and a value at a rounding boundary may round either way)."""
+    x, w1, w2, g_y = testing.moe_grouped_inputs(torch.Generator(device=cuda).manual_seed(16), 64, 128, d, d_ff)
+    errs = testing.moe_grouped_errors(x, w1, w2, g_y, 64)
+    assert errs["split"] == 0, errs
+    assert max(errs["prod_dw2"], errs["prod_dx"], errs["prod_dw1"]) <= 5e-5, errs
+    assert errs["prod_g_pre"] <= 1, errs
+    assert errs["y"] <= 2 ** -8 and max(errs["dx"], errs["dw1"], errs["dw2"]) <= 2 ** -7, errs
+
+
+def test_moe_forward_grouped_takes_the_kernel(cuda):
+    """moe_forward's grouped route on the card: bf16 takes cuda_grouped (2
+    launches forward, with no host read; split + 4 backward), fp32 the plain
+    variant; bf16 y and gradients against forced_variant("torch_reference")
+    within the limits of test_moe_grouped_kernel_matches_plain."""
+    cfg = moe.MoEConfig(d_model=256, d_ff=512, n_experts=8, capacity=128, dtype=torch.bfloat16)
+    params = moe.init_moe_params(cfg, torch.Generator(device=cuda).manual_seed(17), device=cuda)
+    x = torch.randn((2048, 256), generator=torch.Generator(device=cuda).manual_seed(18), device=cuda)
+    x32 = torch.zeros((cfg.padded_tokens, 256), device=cuda)
+    assert registry.dispatch_name("moe_grouped_ffn", x32, params.w1.float(), params.w2.float(), 8) == \
+        "torch_reference"
+    outs = []
+    for plain in (False, True):
+        params.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_()
+        with registry.forced_variant("torch_reference") if plain else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            before = dict(moe_grouped.LAUNCHES)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y, aux = moe.moe_forward(params, xg, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            mid = dict(moe_grouped.LAUNCHES)
+            (torch.mean(y.float() ** 2) + 0.01 * aux).backward()
+        torch.cuda.synchronize()
+        got = ({k: mid[k] - before[k] for k in before}, {k: moe_grouped.LAUNCHES[k] - mid[k] for k in before})
+        zero = {"moe_grouped_gemm": 0, "moe_split3": 0}
+        assert got == ((zero, zero) if plain else ({"moe_grouped_gemm": 2, "moe_split3": 0},
+                                                   {"moe_grouped_gemm": 4, "moe_split3": 1}))
+        outs.append({"y": y.detach(), "x": xg.grad, **{n: p.grad for n, p in params.named_parameters()}})
+    errs = {k: testing.rel_max_error(outs[0][k], outs[1][k]) for k in outs[1]}
+    assert errs.pop("y") <= 2 ** -8 and max(errs.values()) <= 2 ** -7, errs
 
 
 # ------------------------------------------------------------ CSR engine --

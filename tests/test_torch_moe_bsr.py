@@ -8,6 +8,7 @@ topology). JAX runs its Pallas FFN, SDD and DSD kernels in interpret
 mode; the port runs their plain versions."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -18,11 +19,12 @@ import torch
 from sputnik_tpu.models import moe as jmoe
 from sputnik_tpu.models import transformer as jtr
 from sputnik_tpu_torch.formats import BlockSparseMatrix
-from sputnik_tpu_torch.kernels import bsr_ffn
+from sputnik_tpu_torch.kernels import bsr_ffn, moe_grouped
 from sputnik_tpu_torch.models import moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.models.convert import load_numpy_
-from sputnik_tpu_torch.ops import bsr_softmax
+from sputnik_tpu_torch.ops import bsr_softmax, registry
+from sputnik_tpu_torch.utils import testing
 
 D = 256
 
@@ -207,3 +209,177 @@ def test_lm_topologies_carry_the_moe_topology():
         np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)))
     assert t.shape == j.shape and t.nnz_blocks == j.nnz_blocks
     assert bsr_ffn._entry(t) is not None and bsr_ffn.plan_group_ffn(t)[1] == 1
+
+
+# --------------------------------------- the grouped FFN's registry op --
+def _parent_grouped(params, x, cfg):
+    """``moe_forward(impl="grouped")`` as it read before the op
+    ``moe_grouped_ffn``: fp32 copies of the operands, two fp32 ``bmm``."""
+    slot, keep, prob, aux = moe._route(moe.router_logits(params, x, cfg), cfg)
+    slot_or_drop = torch.where(keep, slot, cfg.padded_tokens)
+    x_perm = torch.zeros((cfg.padded_tokens + 1, x.shape[1]), dtype=cfg.dtype)
+    x_perm[slot_or_drop] = x.to(cfg.dtype)
+    x_perm = x_perm[: cfg.padded_tokens]
+    e, c, d, f = cfg.n_experts, cfg.capacity, cfg.d_model, cfg.d_ff
+    xg = x_perm.reshape(e, c, d).float()
+    w1 = params.w1.reshape(d, e, f).permute(1, 0, 2).float()
+    w2 = params.w2.reshape(e, f, d).float()
+    h = torch.nn.functional.gelu(torch.bmm(xg, w1), approximate="tanh").to(cfg.dtype)
+    y = torch.bmm(h.float(), w2).reshape(e * c, d)[slot]
+    return (y * (prob * keep.float())[:, None]).to(x.dtype), aux
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [256, 640])  # 640 overflows capacity: drops
+def test_grouped_route_matches_parent_bitwise(rng, dtype, tokens):
+    """On the CPU the registry op takes the plain variant, and y, the aux
+    loss and every gradient equal the former inline fp32 path bit for bit;
+    expert 1 gets no token."""
+    _, _, tcfg, tparams = _moe_pair(empty_expert=1)
+    cfg = dataclasses.replace(tcfg, dtype=dtype)
+    params = moe.MoE(cfg, device="cpu")
+    params.load_state_dict({k: v.to(params.state_dict()[k].dtype) for k, v in tparams.state_dict().items()})
+    x = torch.from_numpy(_tokens(rng, tokens))
+    outs = []
+    for fn in (lambda p, xs: moe.moe_forward(p, xs, cfg), lambda p, xs: _parent_grouped(p, xs, cfg)):
+        params.zero_grad(set_to_none=True)
+        xs = x.clone().requires_grad_()
+        y, aux = fn(params, xs)
+        (torch.mean(y.float() ** 2) + 0.01 * aux).backward()
+        outs.append([y.detach(), aux.detach(), xs.grad] + [p.grad for p in params.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    if tokens == 640:
+        assert int(outs[0][0].abs().amax(-1).eq(0).sum()) >= tokens - 3 * 128  # three experts' capacity
+
+
+def _fake_cuda(shape, dtype=torch.bfloat16):
+    return types.SimpleNamespace(is_cuda=True, dtype=dtype, shape=torch.Size(shape), ndim=len(shape))
+
+
+def test_grouped_ffn_routes_plain_problems_to_the_plain_variant():
+    """CPU problems and, under forced_variant, every problem take
+    ``torch_reference``; ``cuda_grouped``'s predicate takes bf16 card
+    problems with d and F multiples of 128 and C of 64 only (fake CUDA
+    operands: this machine may have no card)."""
+    e, c, d, f = 4, 128, 256, 256
+    cpu = [torch.zeros(e * c, d), torch.zeros(d, e * f), torch.zeros(e * f, d)]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in cpu]
+        assert registry.dispatch_name("moe_grouped_ffn", *args, e) == "torch_reference"
+    card = lambda c_, d_, f_, dtype=torch.bfloat16: [  # noqa: E731
+        _fake_cuda((e * c_, d_), dtype), _fake_cuda((d_, e * f_), dtype), _fake_cuda((e * f_, d_), dtype)]
+    assert registry.dispatch_name("moe_grouped_ffn", *card(c, d, f), e) == "cuda_grouped"
+    with registry.forced_variant("torch_reference"):
+        assert registry.dispatch_name("moe_grouped_ffn", *card(c, d, f), e) == "torch_reference"
+    for args in (card(c, d, f, torch.float32), card(96, d, f), card(c, 192, f), card(c, d, 320)):
+        assert registry.dispatch_name("moe_grouped_ffn", *args, e) == "torch_reference"
+    mixed = card(c, d, f)
+    mixed[1] = _fake_cuda((d, e * f), torch.float32)
+    assert registry.dispatch_name("moe_grouped_ffn", *mixed, e) == "torch_reference"
+
+
+@pytest.mark.parametrize("e,c,d,f", [(4, 64, 128, 256), (3, 128, 256, 128)])
+def test_grouped_ffn_launches_emulated_match_plain(rng, e, c, d, f):
+    """The kernels' launches as ``gemm_reference`` reads them (operands at
+    their per-expert steps, the three-term split, the four epilogues),
+    through the autograd Function, against autograd of the plain fp32
+    ``bmm`` path, with the limits of ``testing.moe_grouped_errors``: y
+    within 2^-8 of its max, the bf16 gradients within 2^-7 of theirs (h and
+    dh are rounded to bf16 on both sides, and a value at a rounding boundary
+    may round either way)."""
+    x = torch.from_numpy(rng.standard_normal((e * c, d)).astype(np.float32)).to(torch.bfloat16)
+    x[c // 2:c] = 0  # half of expert 0's slots empty
+    w1 = torch.from_numpy(rng.standard_normal((d, e * f)).astype(np.float32) * d ** -0.5).to(torch.bfloat16)
+    w2 = torch.from_numpy(rng.standard_normal((e * f, d)).astype(np.float32) * f ** -0.5).to(torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((e * c, d)).astype(np.float32))
+    outs = []
+    for fn in (lambda *a: moe_grouped.GroupedFfn.apply(*a, e, True, moe_grouped.gemm_reference,
+                                                       moe_grouped.split3_reference),
+               lambda *a: moe_grouped.grouped_ffn_reference(*a, e)):
+        leaves = [t.clone().requires_grad_() for t in (x, w1, w2)]
+        y = fn(*leaves)
+        y.backward(g)
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*outs):
+        assert got.dtype == want.dtype
+        assert testing.rel_max_error(got, want) <= (2 ** -8 if got.dtype == torch.float32 else 2 ** -7)
+
+
+def test_grouped_split_is_exact(rng):
+    g = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    # Exact from 2^-110 (the third term still a normal number) to bf16's largest finite value.
+    g = torch.cat([g * 1e-25, g, g * 1e30, torch.tensor([0.0, -0.0, 1.0, 2.0 ** -110, 3.0e38])])
+    parts = moe_grouped.split3_reference(g)
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3,) + g.shape
+    assert torch.equal(parts[0].float() + parts[1].float() + parts[2].float(), g)
+
+
+def test_grouped_plan_and_checks():
+    """``plan`` at the benchmark's per-layer shapes (E 64, C 128) on the
+    H100 SXM's 132 SMs: 128 x 256 tiles, but 64 x 256 where 128 x 256 tiles
+    would leave most of a last wave idle; ``gemm`` refuses CPU tensors."""
+    assert moe_grouped.plan(128, 3072, 64, 132) == (128, 256)
+    assert moe_grouped.plan(128, 4096, 64, 132) == (128, 256)
+    assert moe_grouped.plan(3072, 768, 64, 132) == (128, 256)
+    assert moe_grouped.plan(4096, 1024, 64, 132) == (128, 256)  # 8192 tiles: the wave's tail is noise
+    assert moe_grouped.plan(128, 768, 64, 132) == (64, 256)  # 192 tiles of 128 x 256: 1.45 waves
+    assert moe_grouped.plan(128, 1024, 64, 132) == (128, 256)  # 256 tiles: 1.94 waves
+    with pytest.raises(ValueError, match="multiple"):
+        moe_grouped.plan(96, 256, 4, 132)
+    x, w1, w2 = torch.zeros(256, 128, dtype=torch.bfloat16), torch.zeros(128, 512, dtype=torch.bfloat16), \
+        torch.zeros(512, 128, dtype=torch.bfloat16)
+    h, y = torch.zeros(256, 256, dtype=torch.bfloat16), torch.zeros(256, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_grouped.gemm(moe_grouped.forward_gemms(x, w1, w2, 2, h, y)[0])
+
+
+@pytest.mark.parametrize("tokens", [256, 640])  # 640 overflows capacity: drops
+def test_grouped_kernel_route_bf16_matches_jax(rng, monkeypatch, tokens):
+    """The bf16 configuration the kernels serve, on the CPU: ``moe_forward``
+    through ``cuda_grouped``'s autograd Function with every launch emulated
+    by ``gemm_reference`` and the split by ``split3_reference`` (bf16
+    operands, fp32 products and accumulation, gelu on the fp32
+    pre-activation, bf16 h, the fp32 cotangents as three exact bf16 terms,
+    gradients rounded to bf16), against ``jax.vjp`` of the JAX package's
+    ``moe_forward(impl="grouped")`` (its two einsums with
+    ``preferred_element_type=float32``) on the same bf16 inputs and
+    cotangent: y within 2^-8 of its max and every gradient within 2^-7 of
+    its max, the limits of the card tests (h and dh are rounded to bf16 on
+    both sides, and a value at a rounding boundary may round either way).
+    Besides, each gradient's mean |diff| within 2^-12 of its mean |value|:
+    with the split exact, both sides' products agree up to fp32 summation
+    order and only the few elements at a rounding boundary differ (measured
+    at most 5.6e-6), where a split that kept only the first term misses by
+    1.6e-3 to 3.0e-3. Expert 1 gets no token."""
+    jcfg, jparams, tcfg, _ = _moe_pair(empty_expert=1)
+    jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
+    jparams = dict(jparams, w1=jparams["w1"].astype(jnp.bfloat16), w2=jparams["w2"].astype(jnp.bfloat16))
+    cfg = dataclasses.replace(tcfg, dtype=torch.bfloat16)
+    params = moe.MoE(cfg, device="cpu")
+    params.load_state_dict({k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(params.state_dict()[k].dtype)
+                            for k, v in jparams.items()})
+    x = _tokens(rng, tokens)
+    g = rng.standard_normal((tokens, D)).astype(np.float32)
+    jx, jg = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, g))
+    jy, vjp = jax.vjp(lambda p, xs: jmoe.moe_forward(p, xs, jcfg, None, impl="grouped")[0], jparams, jx)
+    jgrads, jgx = vjp(jg)
+
+    monkeypatch.setattr(moe_grouped, "gemm", moe_grouped.gemm_reference)
+    monkeypatch.setattr(moe_grouped, "split3", moe_grouped.split3_reference)
+    xs = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    with registry.forced_variant("cuda_grouped"):
+        y, _ = moe.moe_forward(params, xs, cfg)
+    y.backward(torch.from_numpy(g).to(torch.bfloat16))
+
+    def to_torch(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32)))
+
+    assert y.dtype == torch.bfloat16 and testing.rel_max_error(y.detach(), to_torch(jy)) <= 2 ** -8
+    grads = {"x": (xs.grad, jgx), **{n: (p.grad, jgrads[n]) for n, p in params.named_parameters()}}
+    for name, (got, want) in grads.items():
+        assert got.dtype == params.state_dict().get(name, xs).dtype, name
+        assert testing.rel_max_error(got, to_torch(want)) <= 2 ** -7, name
+        diff = (got.float() - to_torch(want)).abs().mean() / to_torch(want).abs().mean()
+        assert float(diff) <= 2 ** -12, (name, float(diff))
+    if tokens == 640:
+        assert int(y.detach().abs().amax(-1).eq(0).sum()) >= tokens - 3 * 128  # three experts' capacity
