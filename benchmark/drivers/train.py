@@ -15,6 +15,7 @@ the seed and the step's number.
 
 from __future__ import annotations
 
+import statistics
 from typing import Dict
 
 import torch
@@ -84,7 +85,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     notes = [f"dispatch: {routes}"]
     t0 = harness.now()
     setup_s = t0 - ctx.t_start
-    n_steps, t_end, k = 0, t0, tr["reference_steps"] + 1
+    n_steps, t_end, k, step_s = 0, t0, tr["reference_steps"] + 1, []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     units = tr["trace_units"] if ctx.trace else None
@@ -94,7 +95,9 @@ def run(ctx: harness.Context) -> harness.Outcome:
         with ctx.window():
             while (units is None and harness.now() - t0 < ctx.seconds) or (units is not None and n_steps < units):
                 float(step(batch(cfg, ctx.seed, k, dev)))
-                t_end = harness.now()
+                t = harness.now()
+                step_s.append(t - t_end)
+                t_end = t
                 n_steps += 1
                 k += 1
             harness.sync(dev)
@@ -104,7 +107,9 @@ def run(ctx: harness.Context) -> harness.Outcome:
     seqs = n_steps * cfg["global_batch_sequences"]
     tokens = seqs * cfg["seq_len"]
     e2e = {"train_tokens_per_s": tokens / (t_end - t0), "setup_s": setup_s}
-    notes.append(f"window: {n_steps} steps, {tokens} tokens in {t_end - t0:.3f} s; setup {setup_s:.3f} s; "
+    q = statistics.quantiles(step_s, n=4) if len(step_s) > 1 else step_s * 3
+    notes.append(f"window: {n_steps} steps, {tokens} tokens in {t_end - t0:.3f} s; step s quartiles "
+                 f"{q[0]:.4f} / {q[1]:.4f} / {q[2]:.4f}, max {max(step_s):.4f}; setup {setup_s:.3f} s; "
                  f"memory peak {peak} bytes")
     outcome = harness.Outcome(attempted=seqs, failed=0, end_to_end=e2e, checks={}, memory_peak_bytes=peak,
                               work={"train_sequences": seqs, "seq_len": cfg["seq_len"]}, prof=prof, notes=notes)

@@ -7,6 +7,12 @@ and ``metrics/<metric>.py``. A metric module defines ``read(reading)``,
 returning a number or None (nothing to read: the metric is left out of the
 line), and may list in ``RANGES`` the port functions (``module:function``)
 its reading needs wrapped in the traced run.
+
+On the card a run notes the host it ran on (CPU, affinity, load, the
+card's ``local_cpulist`` and how many of its CPUs the affinity holds, and
+the time a fixed Python loop takes before set-up and after the window), so
+that a slow host can be told from a slow program. It changes nothing of
+where it runs.
 """
 
 from __future__ import annotations
@@ -17,10 +23,12 @@ import importlib
 import importlib.util
 import json
 import math
+import os
+import statistics
 import sys
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Set
 
 import torch
 
@@ -95,6 +103,66 @@ def free(device: torch.device) -> None:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+
+
+# Top-level modules that no run may hold once its window has closed: JAX and
+# the JAX package, of which the port is a translation.
+FORBIDDEN = ("jax", "jaxlib", "flax", "sputnik_tpu")
+
+
+def forbidden_modules() -> List[str]:
+    """The forbidden top-level names in ``sys.modules``, compared whole."""
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def parse_cpulist(text: str) -> Set[int]:
+    """The CPUs of a sysfs cpulist such as ``0-31,64-95``."""
+    cpus: Set[int] = set()
+    for part in text.strip().split(","):
+        if part:
+            lo, _, hi = part.partition("-")
+            cpus.update(range(int(lo), int(hi or lo) + 1))
+    return cpus
+
+
+def placement(text: Optional[str], where: str) -> str:
+    """Says where the card's local CPUs are and how many of them this
+    process may run on, from the text of sysfs' ``local_cpulist`` (None
+    where the file is missing)."""
+    if text is None:
+        return f"card local_cpulist missing ({where})"
+    local = parse_cpulist(text)
+    if not local:
+        return f"card local_cpulist empty ({where})"
+    return (f"card local_cpulist {text.strip()!r}, {len(local & os.sched_getaffinity(0))} of its "
+            f"{len(local)} CPUs in the affinity")
+
+
+def host_loop_ms(repeats: int = 5) -> float:
+    """The median time of a fixed pure-Python loop, in ms: how fast the host
+    runs one thread now."""
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        s = 0
+        for i in range(20000):
+            s += i * i % 7
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def host_facts(placed: str) -> str:
+    def first(path: str, prefix: str = "") -> str:
+        try:
+            with open(path) as fh:
+                for line in fh:
+                    if line.startswith(prefix):
+                        return line.split(":", 1)[1].strip() if prefix else line.strip()
+        except OSError:
+            pass
+        return "unknown"
+    return (f"cpu {first('/proc/cpuinfo', 'model name')}, {len(os.sched_getaffinity(0))} CPUs in the affinity "
+            f"of {os.cpu_count()}, loadavg {first('/proc/loadavg')}, {placed}")
 
 
 class Variants:
@@ -210,13 +278,30 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, devic
             values[name] = {"value": v, "unit": next(m["unit"] for m in c.per_layer if m["name"] == name)}
         ranges.calls = []
 
+    host = []
+    if device.type == "cuda":
+        p = torch.cuda.get_device_properties(device)
+        path = Path(f"/sys/bus/pci/devices/{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:{p.pci_device_id:02x}.0"
+                    "/local_cpulist")
+        try:
+            text = path.read_text()
+        except OSError:
+            text = None
+        host.append(host_facts(placement(text, str(path))))
+    loop_ms = [host_loop_ms()]
+
+    def window_closed(out: Outcome) -> None:
+        loop_ms.append(host_loop_ms())
+        after_window(out)
+
     ctx = Context(cell=c, seed=seed, seconds=seconds, trace=trace, device=device,
-                  t_start=t_start, ranges=ranges, after_window=after_window)
+                  t_start=t_start, ranges=ranges, after_window=window_closed)
     try:
         out = driver.run(ctx)
     finally:
         if ranges is not None:
             ranges.restore()
+    host.append(f"a fixed Python loop took {loop_ms[0]:.3f} ms before set-up, {loop_ms[-1]:.3f} ms after the window")
     prof = profile[0] if profile else None
     checks = {}
     correct = out.failed == 0
@@ -231,7 +316,8 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, devic
     result["checks"] = checks
     if device.type == "cuda":
         from sputnik_tpu_torch.utils.profiling import card
-        log(f"card: {card()}")
+        host.insert(0, card())
+    log(("card: " if device.type == "cuda" else "host: ") + "; ".join(host))
     for note in out.notes:
         log(note)
     return result

@@ -4,7 +4,9 @@
 
 Run from the root of a checkout on a machine with the card(s) the cell asks
 for. The last line of standard output is the result's JSON object; the
-numbers that decide ``correct`` are the last lines of standard error.
+numbers that decide ``correct`` are the last lines of standard error. A run
+that finds JAX or the JAX package loaded once its window has closed prints
+no result and exits non-zero.
 Every cache the run writes stays inside ``benchmark/.cache`` of the
 checkout.
 """
@@ -50,6 +52,10 @@ def main(argv=None) -> int:
         return 2
     result = harness.run(ROOT, args.workload, args.seed, args.seconds, bool(args.trace),
                          torch.device("cuda"), T_START)
+    loaded = harness.forbidden_modules()
+    if loaded:
+        harness.log(f"the run loaded {loaded}: JAX or the JAX package, which no run may use; no result")
+        return 3
     for name, c in result["checks"].items():
         harness.log(f"check {name}: {c['value']!r} limit {c['limit']!r}")
     print(json.dumps(result), flush=True)
