@@ -265,8 +265,21 @@ Phases (any failure raises and the script exits non-zero):
    the forward + backward beside the plain version, bf16 torch.bmm and the
    bound, and the split's (the kernel table's rows: MoE-Medium's forward
    and split; their launches are phase 3's and phase 6's).
+18. The ragged SwiGLU grouped GEMM at Mellum2's widths (64 experts of 896,
+   top-8, hidden 2304, bf16), a decode step of 8 tokens and a 4096-token
+   prompt: (a) the two ragged launches against gemm_reference and the
+   per-expert plain FFN; (b) topk_moe_forward through the registry op
+   moe_ragged_swiglu (cuda_grouped first fit, under
+   set_sync_debug_mode("error"), two launches) against
+   forced_variant("torch_reference"); (c) device times beside the plain
+   version, torch._grouped_mm and the bound (the table's row: the prompt).
+19. The windowed softmax (Mellum2's 1024-token window on the 9-block
+   band, 32 heads, bf16): (a) both passes against their plain versions and
+   the chain at T 4096; (b) the window's edge on zero scores; (c) device
+   times at T 16384 (the table's row: the normalize pass). Both rows'
+   launches are these phases'.
 
-The line before the last is {"kernels": [...]} (thirty-five kernels, each
+The line before the last is {"kernels": [...]} (thirty-seven kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -1084,6 +1097,183 @@ def grouped_times(name_limit: str) -> dict:
         del x, w1, w2, g_y, leaves, lib_leaves, xg, w1g, w2g
         torch.cuda.empty_cache()
     return row
+
+
+# ---------------------------------------------------------- phases 18, 19 --
+# Mellum2-12B-A2.5B (benchmark/configs/mellum2-12b-a2.5b.json): its top-8 of
+# 64 SwiGLU experts of 896 at hidden 2304, and its 1024-token windows.
+MELLUM_D, MELLUM_F, MELLUM_E, MELLUM_K = 2304, 896, 64, 8
+MELLUM_TOKENS = {"decode": 8, "prefill": 4096}  # a decode step at batch 8; a 4096-token prompt
+
+
+def mellum_moe(seed: int):
+    cfg = moe.MoEConfig(d_model=MELLUM_D, d_ff=MELLUM_F, n_experts=MELLUM_E, capacity=128, top_k=MELLUM_K,
+                        norm_topk_prob=True, activation="swiglu")
+    params = moe.init_moe_params(cfg, torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    params.requires_grad_(False)
+    return cfg, params
+
+
+def mellum_routed(cfg, params, t: int, seed: int):
+    """(x routed rows, tile_expert, tile rows, x, experts used) of t tokens."""
+    x = torch.randn((t, MELLUM_D), generator=torch.Generator(device=DEV).manual_seed(seed), device=DEV)
+    x = x.to(torch.bfloat16)
+    tile = moe.tile_rows_for(t, cfg)
+    _, _, src, tile_expert, counts, _ = moe._topk_route(x.float() @ params.router.float(), cfg, tile)
+    return x[src], tile_expert, tile, x, int((counts > 0).sum())
+
+
+def ragged_cases(errors) -> None:
+    """(a) the ragged SwiGLU launches (the gate / up product with the SwiGLU
+    epilogue, then the down product) at a decode step's and a prompt's
+    shapes against gemm_reference on the same launch descriptions, and
+    against the per-expert plain FFN, on the routed rows: h is rounded to
+    bf16 in both, so the products agree to fp32 summation order and the
+    rounding of h, within 2^-8 of y's max. (b) topk_moe_forward through the
+    registry op moe_ragged_swiglu: cuda_grouped first fit, under
+    set_sync_debug_mode("error"), two ragged launches, against
+    forced_variant("torch_reference") within 2^-7 of y's max: y is stored
+    in bf16, so two fp32 sums of the 8 experts' terms in other orders may
+    round one ulp apart, up to 2^-7 of the largest element."""
+    cfg, params = mellum_moe(180)
+    worst = 0.0
+    for label, t in MELLUM_TOKENS.items():
+        xp, tile_expert, tile, x, used = mellum_routed(cfg, params, t, 181)
+        live = tile_expert.long().repeat_interleave(tile) >= 0
+        y = mgk.ragged_swiglu_ffn(xp, params.w13, params.w2, MELLUM_E, tile_expert, tile)
+        y_launch = mgk.ragged_swiglu_ffn(xp, params.w13, params.w2, MELLUM_E, tile_expert, tile,
+                                         run=mgk.gemm_reference)
+        y_plain = mgk.ragged_swiglu_reference(xp, params.w13, params.w2, MELLUM_E, tile_expert, tile)
+        scale = float(y_plain[live].abs().max())
+        e_launch = float((y[live] - y_launch[live]).abs().max()) / scale
+        e_plain = float((y[live] - y_plain[live]).abs().max()) / scale
+        print(f"  {label} ({t} tokens, tile {tile}): {xp.shape[0]} rows, {int((tile_expert >= 0).sum())} live tiles, "
+              f"{used} experts; kernel vs launch reference {e_launch:.2e}, vs plain {e_plain:.2e} of max", flush=True)
+        check(e_launch <= 2 ** -8 and e_plain <= 2 ** -8, f"ragged {label}: {e_launch}, {e_plain}")
+        worst = max(worst, float((y[live] - y_launch[live]).abs().max()))
+        name = registry.dispatch_name("moe_ragged_swiglu", xp, params.w13, params.w2, MELLUM_E, tile_expert, tile)
+        check(name == "cuda_grouped", f"moe_ragged_swiglu first fit is {name}")
+        torch.cuda.synchronize()
+        before = mgk.RAGGED_LAUNCHES
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = moe.topk_moe_forward(params, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(mgk.RAGGED_LAUNCHES - before == 2, f"topk_moe_forward made {mgk.RAGGED_LAUNCHES - before} launches")
+        with registry.forced_variant("torch_reference"):
+            plain = moe.topk_moe_forward(params, x, cfg)
+        err = testing.rel_max_error(out, plain)
+        print(f"  topk_moe_forward ({label}) against the plain route: {err:.2e} of max", flush=True)
+        check(err <= 2 ** -7, f"topk_moe_forward {label} differs from the plain route by {err}")
+        del xp, y, y_launch, y_plain
+        torch.cuda.empty_cache()
+    errors["moe_grouped_ragged"] = worst
+
+
+def ragged_times(name_limit: str) -> dict:
+    """(c) device times of the two ragged launches at both shapes, the plain
+    version's (per expert, eager, reading the experts back) and the
+    library's (torch._grouped_mm on expert-major weight copies, bf16, with
+    silu * up in torch); the bound from the useful work (6 t k d F) and the
+    bytes (the experts used, read once; x in, h out and in, y out, each in
+    bf16 on the t k routed rows, not the padded ones). Returns the prompt
+    shape's row for the kernel table."""
+    cfg, params = mellum_moe(182)
+    d, f, e = MELLUM_D, MELLUM_F, MELLUM_E
+    w13g = params.w13.reshape(d, e, 2 * f).permute(1, 0, 2).contiguous()
+    w2g = params.w2.reshape(e, f, d)
+    row = None
+    for label, t in MELLUM_TOKENS.items():
+        xp, tile_expert, tile, _, used = mellum_routed(cfg, params, t, 183)
+        rows = xp.shape[0]
+        kern = time_ms(lambda: mgk.ragged_swiglu_ffn(xp, params.w13, params.w2, e, tile_expert, tile))[0]
+        plain = time_ms_eager(lambda: mgk.ragged_swiglu_reference(xp, params.w13, params.w2, e, tile_expert, tile),
+                              warmup=1, iters=3)
+        sizes = torch.bincount(tile_expert.long().clamp(min=0), minlength=e) * tile
+        sizes[0] -= int((tile_expert < 0).sum()) * tile
+        offs = torch.cumsum(sizes, 0).to(torch.int32)
+
+        def library():
+            gu = torch._grouped_mm(xp, w13g, offs=offs)
+            return torch._grouped_mm((F.silu(gu[:, :f]) * gu[:, f:]).contiguous(), w2g, offs=offs)
+
+        lib = library_call("moe_grouped_ragged", library)
+        flops = 6 * t * MELLUM_K * d * f
+        routed = t * MELLUM_K
+        nbytes = used * 3 * d * f * 2 + routed * d * 2 + 2 * routed * f * 2 + routed * d * 2
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        lib_text = f"library {lib * 1e3:.2f} us (torch._grouped_mm x 2)" if lib else "library: none"
+        print(f"  moe_grouped ragged SwiGLU {label} ({t} tokens x top-{MELLUM_K}, {rows} rows, {used} experts): "
+              f"kernels {kern * 1e3:.2f} us ({flops / kern / 1e9:.1f} TFLOP/s), bound {bound * 1e3:.2f} us ({by}; "
+              f"{100 * bound / kern:.1f}% of it), plain {plain * 1e3:.2f} us, {lib_text} on {name_limit}", flush=True)
+        if label == "prefill":
+            row = {"moe_grouped_ragged": (kern, plain, lib, bound, by)}
+        del xp
+        torch.cuda.empty_cache()
+    return row
+
+
+def window_cases(errors) -> None:
+    """(a) the windowed stats and normalize kernels (Mellum2's sliding
+    topology: the causal band of 9 blocks, window 1024, 32 heads, bf16)
+    against their plain versions and the torch chain at T 4096; (b) the
+    window's edge on zero scores: every row's probabilities are 1 / the
+    keys it keeps, min(i + 1, 1024), and no more keys are kept."""
+    t, h = 4096, 32
+    topo = attention.causal_block_topology(t, window_blocks=9, device=DEV)
+    data = (torch.randn((h, topo.nnz_blocks, 128, 128), generator=torch.Generator(device=DEV).manual_seed(190),
+                        device=DEV) * 4).to(torch.bfloat16)
+    kw = dict(scale=128 ** -0.5, causal=True, window=1024)
+    m, l = bsm.stats(data, topo, **kw)
+    m0, l0 = bsm.stats_reference(data, topo, **kw)
+    p = bsm.normalize(data, m, l, topo, **kw)
+    p0 = bsm.normalize_reference(data, m0, l0, topo, out_dtype=torch.bfloat16, **kw)
+    chain = ops.bsr_softmax(topo.with_data(data), variant="jnp", **kw).data
+    e_m = float((m - m0).abs().max())
+    e_l = float((l - l0).abs().max() / l0.abs().max())
+    e_p = float((p.float() - p0.float()).abs().max())
+    e_c = float((p.float() - chain.float()).abs().max())
+    print(f"  T {t}, {topo.nnz_blocks} blocks x {h} heads: m {e_m:.2e}, l {e_l:.2e} of max, p vs plain {e_p:.2e}, "
+          f"p vs chain {e_c:.2e}", flush=True)
+    check(e_m == 0 and e_l <= 1e-6 and e_p <= 2 ** -8 and e_c <= 2 ** -8, "the windowed softmax is off")
+    errors["bsr_softmax_window"] = max(e_p, e_c)
+    zeros = torch.zeros((1, topo.nnz_blocks, 128, 128), dtype=torch.bfloat16, device=DEV)
+    pz = ops.bsr_softmax(topo.with_data(zeros), **kw).data[0].float()
+    kept = bsm.segment((pz > 0).float().sum(-1)[None], topo.offsets, "sum")[0].flatten()
+    want = torch.clamp(torch.arange(t, device=DEV) + 1, max=1024).float()
+    check(torch.equal(kept, want), "a row keeps other keys than i - 1024 < j <= i")
+    print("  edge: every row keeps min(i + 1, 1024) keys, key i - 1024 dropped", flush=True)
+
+
+def window_times(name_limit: str) -> dict:
+    """(c) device times of the two windowed passes at T 16384, 32 heads (a
+    16k prompt's sliding layer), the plain versions', and the bound from
+    the blocks' bytes (stats: read once; normalize: read and written).
+    Library: none (no call takes a token-exact window over BSR blocks).
+    Returns the normalize pass's row for the kernel table."""
+    t, h = 16384, 32
+    topo = attention.causal_block_topology(t, window_blocks=9, device=DEV)
+    data = (torch.randn((h, topo.nnz_blocks, 128, 128), generator=torch.Generator(device=DEV).manual_seed(191),
+                        device=DEV) * 4).to(torch.bfloat16)
+    kw = dict(scale=128 ** -0.5, causal=True, window=1024)
+    m, l = bsm.stats(data, topo, **kw)
+    elems, stats_bytes = data.numel(), 2 * h * t * 4
+    rows = {}
+    for kname, kern, plain, nbytes in (
+            ("stats", lambda: bsm.stats(data, topo, **kw), lambda: bsm.stats_reference(data, topo, **kw),
+             elems * 2 + stats_bytes),
+            ("normalize", lambda: bsm.normalize(data, m, l, topo, **kw),
+             lambda: bsm.normalize_reference(data, m, l, topo, out_dtype=torch.bfloat16, **kw),
+             2 * elems * 2 + stats_bytes)):
+        ms = time_ms(kern)[0]
+        plain_ms = _library_time(plain)[0]
+        bound, by = bound_ms(nbytes, 4 * elems, FP32_FLOPS)
+        print(f"  bsr_softmax windowed {kname} T {t}, {topo.nnz_blocks} blocks x {h} heads bf16: kernel "
+              f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library: none, bound {bound * 1e3:.2f} us ({by}; "
+              f"{100 * bound / ms:.1f}% of it) on {name_limit}", flush=True)
+        rows[kname] = (ms, plain_ms, None, bound, by)
+    return {"bsr_softmax_window": rows["normalize"]}
 
 
 # ------------------------------------------------- bounds and library calls --
@@ -4066,6 +4256,24 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     p17_times = grouped_times(name_limit)
     torch.cuda.empty_cache()
 
+    print(f"== phase 18: the ragged SwiGLU grouped GEMM (moe_grouped, tile_expert and the SwiGLU epilogue) at "
+          f"Mellum2's widths: {MELLUM_E} experts of {MELLUM_F}, top-{MELLUM_K}, hidden {MELLUM_D}, bf16", flush=True)
+    print("(a, b) the launches against gemm_reference and the plain FFN; topk_moe_forward through the registry",
+          flush=True)
+    ragged_cases(errors)
+    print("(c) times (CUDA-graph device time; the plain version eager)", flush=True)
+    p18_times = ragged_times(name_limit)
+    torch.cuda.empty_cache()
+    print("== phase 19: the windowed softmax (bsr_softmax stats and normalize with Mellum2's 1024-token window)",
+          flush=True)
+    print("(a, b) the kernels against their plain versions and the chain; the window's edge", flush=True)
+    window_cases(errors)
+    print("(c) times (CUDA-graph device time)", flush=True)
+    p19_times = window_times(name_limit)
+    main_launches["moe_grouped_ragged"] = mgk.RAGGED_LAUNCHES
+    main_launches["bsr_softmax_window"] = bsm.WINDOW_LAUNCHES
+    torch.cuda.empty_cache()
+
     # launches: the serving run of phase 3 for the sparse kernels, the fused
     # training run of phase 6 for the flash kernels, the bf16 MoE training
     # runs of phase 8 for the FFN kernels, the fine-tune and the attention
@@ -4122,6 +4330,10 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
                              "none (JAX's two einsums, sputnik_tpu/models/moe.py:201-205)"),
         "moe_split3": ("sputnik_tpu_torch/csrc/moe_grouped.cu",
                        "none (the backward of JAX's two einsums takes the fp32 cotangent whole)"),
+        "moe_grouped_ragged": ("sputnik_tpu_torch/csrc/moe_grouped.cu",
+                               "none (the JAX package has no top-k SwiGLU MoE)"),
+        "bsr_softmax_window": ("sputnik_tpu_torch/csrc/bsr_softmax.cu",
+                               "none (the JAX package has no token-exact window)"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
@@ -4134,6 +4346,8 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     measured.update(p15_times)
     measured.update(p16_times)
     measured.update(p17_times)
+    measured.update(p18_times)
+    measured.update(p19_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

@@ -26,6 +26,13 @@
 // Numerics are JAX's: scores in fp32, masked lanes the finite -1e30,
 // p = 0 where s <= -5e29, so a fully masked row gives zeros, not NaN.
 //
+// The two passes also take a token-exact window of W = 128 * window_blocks
+// keys on top of the causal mask (0: none): query i keeps key j when
+// i - W < j <= i. On the causal band of window_blocks + 1 blocks (key
+// blocks r - window_blocks .. r) the mask only cuts the band's first
+// block, where it keeps key offset b > query offset a. The JAX package has
+// no such mask.
+//
 // What bounds it on the H100: the softmax does ~5 operations per score and
 // moves 2 bytes (bf16) in each pass, far below the card's balance point:
 // bytes bound it. The stats pass reads each block once, the normalize pass
@@ -54,7 +61,16 @@ struct SoftmaxArgs {
   int t;                 // element rows: block_rows * 128
   float scale;
   int causal, out_f32;
+  int window_blocks;     // token-exact window of 128 * window_blocks keys; 0: none
 };
+
+// keep() with the window: key kj of block-column c leaves the window of
+// query qi of block-row r when it lies window_blocks blocks back or more,
+// except past the query's offset in the block exactly window_blocks back.
+__device__ __forceinline__ bool keep_window(const SoftmaxArgs& a, int r, int c, int qi, int kj) {
+  return keep(a.causal, r, c, qi, kj) &&
+         (a.window_blocks == 0 || r - c < a.window_blocks || (r - c == a.window_blocks && kj > qi));
+}
 
 // Eight consecutive values of a row, as fp32.
 __device__ __forceinline__ void load8(const float* p, float* v) {
@@ -102,7 +118,7 @@ __global__ void __launch_bounds__(THREADS) stats_kernel(SoftmaxArgs a) {
     float mx = NEG_INF;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      v[j] = keep(a.causal, r, c, qi, 32 * lane4 + j) ? v[j] * a.scale : NEG_INF;
+      v[j] = keep_window(a, r, c, qi, 32 * lane4 + j) ? v[j] * a.scale : NEG_INF;
       mx = fmaxf(mx, v[j]);
     }
     const float m_new = fmaxf(m, row_max(mx));
@@ -136,7 +152,7 @@ __global__ void __launch_bounds__(THREADS) normalize_kernel(SoftmaxArgs a) {
     const float mr = m[row], denom = fmaxf(l[row], 1e-30f);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float sc = keep(a.causal, r, c, row, col + j) ? v[j] * a.scale : NEG_INF;
+      const float sc = keep_window(a, r, c, row, col + j) ? v[j] * a.scale : NEG_INF;
       v[j] = sc > 0.5f * NEG_INF ? expf(sc - mr) / denom : 0.0f;
     }
     store8(a.out, blk + row * BS + col, v, a.out_f32);
@@ -271,10 +287,10 @@ int launch_scores_dh(int dh, const ScoreArgs& a, int tiles, int batch, cudaStrea
 // tensors contiguous; data, scores and out 16-byte aligned.
 extern "C" int bsr_softmax_stats(const void* data, const void* offsets, const void* col_ids, void* m,
                                  void* l, int block_rows, int batch, long long batch_stride, float scale,
-                                 int causal, int in_f32, void* stream) {
+                                 int causal, int window_blocks, int in_f32, void* stream) {
   SoftmaxArgs a{data, nullptr, nullptr, static_cast<const int*>(offsets), nullptr,
                 static_cast<const int*>(col_ids), nullptr, static_cast<float*>(m), static_cast<float*>(l),
-                batch_stride, block_rows * BS, scale, causal, 0};
+                batch_stride, block_rows * BS, scale, causal, 0, window_blocks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(block_rows * (BS / TM), batch);
   if (block_rows > 0 && batch > 0) {
@@ -288,11 +304,11 @@ extern "C" int bsr_softmax_stats(const void* data, const void* offsets, const vo
 
 extern "C" int bsr_softmax_normalize(const void* data, const void* m, const void* l, const void* row_ids,
                                      const void* col_ids, void* out, int nnz, int block_rows, int batch,
-                                     long long batch_stride, float scale, int causal, int in_f32, int out_f32,
-                                     void* stream) {
+                                     long long batch_stride, float scale, int causal, int window_blocks,
+                                     int in_f32, int out_f32, void* stream) {
   SoftmaxArgs a{data, static_cast<const float*>(m), static_cast<const float*>(l), nullptr,
                 static_cast<const int*>(row_ids), static_cast<const int*>(col_ids), out, nullptr, nullptr,
-                batch_stride, block_rows * BS, scale, causal, out_f32};
+                batch_stride, block_rows * BS, scale, causal, out_f32, window_blocks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(nnz, batch);
   if (nnz > 0 && batch > 0) {

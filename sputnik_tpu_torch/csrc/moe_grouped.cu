@@ -27,6 +27,19 @@
 // backward's fp32 x bf16 products are exact up to the order of the fp32
 // sum, as the fp32 bmm they replace.
 //
+// Ragged groups (the dropless top-k MoE, models/moe.py::topk_moe_forward):
+// with tile_expert given, the launch is one expert-less grid over every row
+// tile of A and C, and each row tile reads the expert of its B from
+// tile_expert[blockIdx.y], on the device (a group is padded to whole row
+// tiles, so a tile never holds two experts); a tile past the routed rows
+// (expert -1) returns at once.
+//
+// SwiGLU (glu > 0, FORWARD only): B holds each expert's gate columns and,
+// glu columns further, its up columns. A CTA's BN columns of B are BN / 2
+// gate columns and the same BN / 2 up columns, so the accumulator holds
+// both halves of the same outputs, and the SWIGLU epilogue writes the BN / 2
+// columns silu(gate) * up of h in bf16.
+//
 // Epilogues (epi), on the fp32 accumulator staged row-major through shared
 // memory, each thread storing 8 consecutive elements:
 //   F32        stored as is (y);
@@ -35,7 +48,8 @@
 //              where aux is given (training) the fp32 pre-activation too;
 //   GELU_GRAD  dh rounded to bf16 (where autograd of the plain version
 //              rounds it), times gelu'(pre) read from aux, stored as its
-//              three-term split (g_pre, the next products' operand).
+//              three-term split (g_pre, the next products' operand);
+//   SWIGLU     silu(gate) * up in fp32, then bf16 (with glu).
 //
 // What bounds it on the H100: at the MegaBlocks widths (d 768 / 1024, F 4 d,
 // 64 experts of 128 slots) a forward product is 2 x 64 x 128 x d x F FLOP
@@ -67,7 +81,7 @@ constexpr int BOX_BYTES = BOX * BK * 2;
 constexpr int SMEM_LIMIT = 232448;      // shared memory a block may take on the H100
 
 enum Kind { FORWARD = 0, DATA_GRAD = 1, WEIGHT_GRAD = 2 };
-enum Epi { EPI_F32 = 0, EPI_BF16 = 1, EPI_GELU = 2, EPI_GELU_GRAD = 3 };
+enum Epi { EPI_F32 = 0, EPI_BF16 = 1, EPI_GELU = 2, EPI_GELU_GRAD = 3, EPI_SWIGLU = 4 };
 
 template <int KIND, int BM, int BN>
 struct Cfg {
@@ -97,6 +111,8 @@ struct Params {
   float* aux;               // the fp32 pre-activation, addressed as one term of c; may be null for GELU
   long long c_ld, c_expert, c_term;  // in elements
   int epi;
+  const int* tile_expert;   // ragged: the expert of B of each row tile (-1: none); null: blockIdx.z
+  int glu;                  // SwiGLU: columns from an expert's gate to its up columns in B; 0: none
 };
 
 // gelu-tanh and its derivative in fp32, as PyTorch's CUDA kernels compute
@@ -175,18 +191,30 @@ __device__ __forceinline__ void epilogue8(const Params& p, long long off, float 
   store8(static_cast<__nv_bfloat16*>(p.c) + off, o[0]);
 }
 
+// silu(gate) * up of 8 consecutive outputs, in bf16.
+__device__ __forceinline__ void swiglu8(const Params& p, long long off, const float (&g)[8], const float (&u)[8]) {
+  __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16(g[i] / (1.f + expf(-g[i])) * u[i]);
+  store8(static_cast<__nv_bfloat16*>(p.c) + off, o);
+}
+
 template <int KIND, int BM, int BN>
 __global__ void __launch_bounds__(Cfg<KIND, BM, BN>::THREADS, 1)
     moe_grouped_kernel(const __grid_constant__ CUtensorMap tma_a, const __grid_constant__ CUtensorMap tma_b,
                        Params p) {
   using C = Cfg<KIND, BM, BN>;
   constexpr int STAGES = C::STAGES;
+  // The expert of B: the grid's, or in a ragged launch the row tile's.
+  const int eb = p.tile_expert ? p.tile_expert[blockIdx.y] : static_cast<int>(blockIdx.z);
+  if (eb < 0) return;  // a row tile past the routed rows: the whole CTA leaves before any barrier
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled TMA boxes need 1024-byte aligned destinations.
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
 
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, ex = blockIdx.z;
+  const int nh = blockIdx.x * (BN / 2);  // SwiGLU: the tile's first gate (and up) column, and output column
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -203,7 +231,7 @@ __global__ void __launch_bounds__(Cfg<KIND, BM, BN>::THREADS, 1)
     if (lane == 0) {
       hopper::prefetch_tensormap(&tma_a);
       hopper::prefetch_tensormap(&tma_b);
-      const int a0 = ex * p.a_step0, a1 = ex * p.a_step1, b0 = ex * p.b_step0, b1 = ex * p.b_step1;
+      const int a0 = ex * p.a_step0, a1 = ex * p.a_step1, b0 = eb * p.b_step0, b1 = eb * p.b_step1;
       for (int it = 0; it < p.k_iters; ++it) {
         const int stage = it % STAGES;
         hopper::mbar_wait(&empty[stage], ((it / STAGES) & 1) ^ 1);
@@ -226,9 +254,12 @@ __global__ void __launch_bounds__(Cfg<KIND, BM, BN>::THREADS, 1)
         for (int t = 0; t < C::TERMS_B; ++t) {
           if (C::B_MN) {  // stored (k, n): boxes of 64 n x 64 k
 #pragma unroll
-            for (int w = 0; w < BN / BOX; ++w)
-              hopper::tma_load_3d(b_s + t * C::B_BYTES + w * BOX_BYTES, &tma_b, &full[stage], b0 + n0 + w * BOX,
-                                  b1 + k0, t);
+            for (int w = 0; w < BN / BOX; ++w) {
+              // SwiGLU: the first half of the boxes from the gate columns, the second from the up columns.
+              const int col = !p.glu ? n0 + w * BOX
+                                     : (w < BN / BOX / 2 ? nh + w * BOX : p.glu + nh + (w - BN / BOX / 2) * BOX);
+              hopper::tma_load_3d(b_s + t * C::B_BYTES + w * BOX_BYTES, &tma_b, &full[stage], b0 + col, b1 + k0, t);
+            }
           } else {        // stored (n, k): one box of 64 k x BN n
             hopper::tma_load_3d(b_s + t * C::B_BYTES, &tma_b, &full[stage], b0 + k0, b1 + n0, t);
           }
@@ -294,6 +325,17 @@ __global__ void __launch_bounds__(Cfg<KIND, BM, BN>::THREADS, 1)
     }
   }
   hopper::named_barrier(1, C::CONSUMERS * 128);
+  if (p.glu) {
+    const long long base = ex * p.c_expert + static_cast<long long>(m0) * p.c_ld + nh;
+    for (int v = threadIdx.x; v < BM * BN / 16; v += C::CONSUMERS * 128) {
+      const int r = v / (BN / 16), col = (v % (BN / 16)) * 8;
+      float g[8], u[8];
+      load8(tile + r * (BN + 4) + col, g);
+      load8(tile + r * (BN + 4) + BN / 2 + col, u);
+      swiglu8(p, base + static_cast<long long>(r) * p.c_ld + col, g, u);
+    }
+    return;
+  }
   const long long base = ex * p.c_expert + static_cast<long long>(m0) * p.c_ld + n0;
   for (int v = threadIdx.x; v < BM * BN / 8; v += C::CONSUMERS * 128) {
     const int r = v / (BN / 8), col = (v % (BN / 8)) * 8;
@@ -347,18 +389,26 @@ int launch_tiles(const CUtensorMap& a, const CUtensorMap& b, const Params& p, di
 // e * x_step_rows rows and e * x_step_cols columns in. The output's element
 // (term t, row r, column j) of expert e is at c[e * c_expert + r * c_ld + j +
 // t * c_term]; aux (fp32) is addressed as one term of it. epi: F32 0, BF16 1,
-// GELU 2, GELU_GRAD 3. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a problem the kernel does not take or a tensor
-// map the CUDA driver refuses.
+// GELU 2, GELU_GRAD 3, SWIGLU 4. A ragged launch (tile_expert, m / bm int
+// entries on the device) takes experts 1 and reads B's expert per row tile.
+// SwiGLU (glu > 0, FORWARD, epi SWIGLU) writes n outputs per row from 2 n
+// columns of B: outputs j of a tile from gate columns j and up columns
+// glu + j; each CTA covers bn / 2 outputs. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a problem the kernel does not
+// take or a tensor map the CUDA driver refuses.
 extern "C" int moe_grouped_gemm(int kind, int bm, int bn, int experts, int m, int n, int k, const void* a,
                                 long long a_terms, long long a_rows, long long a_cols, int a_step_rows,
                                 int a_step_cols, const void* b, long long b_terms, long long b_rows,
                                 long long b_cols, int b_step_rows, int b_step_cols, void* c, long long c_ld,
-                                long long c_expert, long long c_term, void* aux, int epi, void* stream) {
+                                long long c_expert, long long c_term, void* aux, int epi,
+                                const void* tile_expert, int glu, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (kind < FORWARD || kind > WEIGHT_GRAD || epi < EPI_F32 || epi > EPI_GELU_GRAD) return bad;
+  if (kind < FORWARD || kind > WEIGHT_GRAD || epi < EPI_F32 || epi > EPI_SWIGLU) return bad;
   if (!((bm == 64 || bm == 128) && (bn == 128 || bn == 256))) return bad;
-  if (experts < 1 || experts > 65535 || m < bm || m % bm || n < bn || n % bn || k < BK || k % BK) return bad;
+  if ((epi == EPI_SWIGLU) != (glu > 0) || (glu && (kind != FORWARD || glu % BOX))) return bad;
+  if (tile_expert && experts != 1) return bad;
+  const int nb = glu ? bn / 2 : bn;  // outputs a CTA covers
+  if (experts < 1 || experts > 65535 || m < bm || m % bm || n < nb || n % nb || k < BK || k % BK) return bad;
   if (m / bm > 65535 || c_ld % 8 || c_expert % 8 || c_term % 8) return bad;
   if (epi == EPI_GELU_GRAD && !aux) return bad;
   const int terms_a = kind == DATA_GRAD ? 3 : 1, terms_b = kind == WEIGHT_GRAD ? 3 : 1;
@@ -368,8 +418,8 @@ extern "C" int moe_grouped_gemm(int kind, int bm, int bn, int experts, int m, in
   if (!hopper::encode(&a_map, a, a_cols, a_rows, a_terms, a_cols, a_cols * a_rows, BOX, a_mn ? BOX : bm)) return bad;
   if (!hopper::encode(&b_map, b, b_cols, b_rows, b_terms, b_cols, b_cols * b_rows, BOX, b_mn ? BOX : bn)) return bad;
   const Params p{k / BK, a_step_cols, a_step_rows, b_step_cols, b_step_rows, c, static_cast<float*>(aux),
-                 c_ld, c_expert, c_term, epi};
-  const dim3 grid(n / bn, m / bm, experts);
+                 c_ld, c_expert, c_term, epi, static_cast<const int*>(tile_expert), glu};
+  const dim3 grid(n / nb, m / bm, experts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
   if (kind == FORWARD)

@@ -9,7 +9,10 @@ and of the score kernel of ``sputnik_tpu/kernels/flash_attention.py``
 scores are scaled and causally masked (diagonal blocks keep their lower
 triangle, blocks above the diagonal are masked) to the finite -1e30, a
 masked lane gets probability 0 and a fully masked row comes out zero.
-Data may carry one leading batch axis (attention heads sharing one
+The stats and normalize passes (and their plain versions) also take
+``window``, a token-exact window on top of the causal mask: query ``i``
+keeps key ``j`` when ``i - window < j <= i`` (a multiple of 128 on the
+card; 0 is none). The JAX package has no such mask. Data may carry one leading batch axis (attention heads sharing one
 topology); ``m`` and ``l`` are then ``(batch, T)``.
 
 The kernels walk each block-row's ``offsets[r] .. offsets[r + 1]`` on the
@@ -40,11 +43,14 @@ from sputnik_tpu_torch.ops import registry
 
 __all__ = [
     "bsr_softmax_pallas", "stats", "normalize", "scores", "stats_reference", "normalize_reference",
-    "scores_reference", "masked_scores", "segment", "LAUNCHES", "NEG_INF", "HEAD_DIMS",
+    "scores_reference", "masked_scores", "window_keep", "segment", "LAUNCHES", "WINDOW_LAUNCHES", "NEG_INF",
+    "HEAD_DIMS",
 ]
 
-# Kernel launches in this process, by kernel; each launch adds one.
+# Kernel launches in this process, by kernel; each launch adds one. A
+# windowed launch of either pass also adds one to WINDOW_LAUNCHES.
 LAUNCHES = {"bsr_softmax_stats": 0, "bsr_softmax_normalize": 0, "sdd_softmax": 0}
+WINDOW_LAUNCHES = 0
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 NEG_INF = -1e30  # finite mask value: a fully masked row gives p = 0, not NaN
@@ -55,8 +61,8 @@ BS = 128
 def _lib():
     lib = _build.load("bsr_softmax")
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.bsr_softmax_stats.argtypes = [ptr] * 5 + [i32, i32, i64, f32, i32, i32, ptr]
-    lib.bsr_softmax_normalize.argtypes = [ptr] * 6 + [i32, i32, i32, i64, f32, i32, i32, i32, ptr]
+    lib.bsr_softmax_stats.argtypes = [ptr] * 5 + [i32, i32, i64, f32, i32, i32, i32, ptr]
+    lib.bsr_softmax_normalize.argtypes = [ptr] * 6 + [i32, i32, i32, i64, f32, i32, i32, i32, i32, ptr]
     lib.sdd_softmax.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, i32, ptr]
     for fn in (lib.bsr_softmax_stats, lib.bsr_softmax_normalize, lib.sdd_softmax):
         fn.restype = ctypes.c_int
@@ -74,15 +80,28 @@ def segment(x: torch.Tensor, offsets: torch.Tensor, reduce: str, initial: Option
     return out.reshape((offsets.shape[0] - 1,) + lead + (bs,)).movedim(0, -2)
 
 
-def masked_scores(data: torch.Tensor, topology: BlockSparseMatrix, scale: float, causal: bool) -> torch.Tensor:
+def window_keep(topology: BlockSparseMatrix, window: int) -> torch.Tensor:
+    """(nnz, bs, bs) bool: within each stored block, query ``i`` against
+    key ``j`` (element indices) kept by the window, ``i - j < window``."""
+    bs = topology.block_size
+    idx = torch.arange(bs, device=topology.indices.device)
+    gap = (topology.row_indices.long() - topology.indices.long())[:, None, None] * bs + idx[:, None] - idx[None, :]
+    return gap < window
+
+
+def masked_scores(data: torch.Tensor, topology: BlockSparseMatrix, scale: float, causal: bool,
+                  window: int = 0) -> torch.Tensor:
     """``data * scale`` in fp32 with the causal mask at -1e30
-    (``_masked_scores``, ``sputnik_tpu/kernels/bsr_softmax.py:42``)."""
+    (``_masked_scores``, ``sputnik_tpu/kernels/bsr_softmax.py:42``), and the
+    token-exact ``window`` (0: none)."""
     s = data.float() * scale
     if causal:
         idx = torch.arange(BS, device=data.device)
         intra = idx[:, None] >= idx[None, :]
         rows, cols = topology.row_indices, topology.indices
         keep = torch.where((rows == cols)[:, None, None], intra[None], (rows > cols)[:, None, None])
+        if window:
+            keep = keep & window_keep(topology, window)
         s = s.masked_fill(~keep, NEG_INF)
     return s
 
@@ -95,15 +114,17 @@ def _online_stats(s: torch.Tensor, topology: BlockSparseMatrix) -> Tuple[torch.T
     return m.flatten(-2), l.flatten(-2)
 
 
-def stats_reference(data: torch.Tensor, topology: BlockSparseMatrix, *, scale: float, causal: bool):
+def stats_reference(data: torch.Tensor, topology: BlockSparseMatrix, *, scale: float, causal: bool,
+                    window: int = 0):
     """(m, l): per element-row max and sum of exp(s - m) over the row's
     stored blocks, ``(..., T)`` fp32; an empty row gives (-1e30, 0)."""
-    return _online_stats(masked_scores(data, topology, scale, causal), topology)
+    return _online_stats(masked_scores(data, topology, scale, causal, window), topology)
 
 
-def normalize_reference(data, m, l, topology: BlockSparseMatrix, *, scale: float, causal: bool, out_dtype):
+def normalize_reference(data, m, l, topology: BlockSparseMatrix, *, scale: float, causal: bool, out_dtype,
+                        window: int = 0):
     """exp(s - m) / max(l, 1e-30) per stored block, 0 on masked lanes."""
-    s = masked_scores(data, topology, scale, causal)
+    s = masked_scores(data, topology, scale, causal, window)
     rows = topology.row_indices.long()
     shape = m.shape[:-1] + (topology.block_rows, BS)
     m_sel = m.reshape(shape)[..., rows, :, None]
@@ -155,10 +176,19 @@ def _stats_out(kernel, batch, topology, device, *outs):
             raise ValueError(f"{kernel}: m and l must be contiguous ({batch}, {topology.rows}) fp32 on {device}")
 
 
-def _raise_on(kernel: str, err: int) -> None:
+def _raise_on(kernel: str, err: int, windowed: bool = False) -> None:
+    global WINDOW_LAUNCHES
     if err:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     LAUNCHES[kernel] += 1
+    WINDOW_LAUNCHES += int(windowed)
+
+
+def _window_blocks(kernel: str, window: int, causal: bool) -> int:
+    if window and (window % BS or window < 0 or not causal):
+        raise ValueError(f"{kernel}: the window must be a nonnegative multiple of 128 under the causal mask, "
+                         f"got {window} (causal={causal})")
+    return window // BS
 
 
 def _stream(device):
@@ -166,24 +196,27 @@ def _stream(device):
 
 
 # ------------------------------------------------------------- the launches --
-def launch_stats(data, topology: BlockSparseMatrix, m, l, *, scale: float, causal: bool) -> None:
+def launch_stats(data, topology: BlockSparseMatrix, m, l, *, scale: float, causal: bool, window: int = 0) -> None:
     """Launch ``bsr_softmax_stats`` into ``m`` and ``l`` ((batch, T) fp32)."""
     kernel = "bsr_softmax_stats"
+    wb = _window_blocks(kernel, window, causal)
     batch = _check_data(kernel, data, topology)
     _metadata(kernel, data.device, topology.offsets, topology.indices)
     _stats_out(kernel, batch, topology, data.device, m, l)
     err = _lib().bsr_softmax_stats(
         data.data_ptr(), topology.offsets.data_ptr(), topology.indices.data_ptr(), m.data_ptr(), l.data_ptr(),
-        topology.block_rows, batch, topology.nnz_blocks * BS * BS, float(scale), int(causal),
+        topology.block_rows, batch, topology.nnz_blocks * BS * BS, float(scale), int(causal), wb,
         int(data.dtype == torch.float32), _stream(data.device),
     )
-    _raise_on(kernel, err)
+    _raise_on(kernel, err, bool(wb))
 
 
-def launch_normalize(data, m, l, topology: BlockSparseMatrix, out, *, scale: float, causal: bool) -> None:
+def launch_normalize(data, m, l, topology: BlockSparseMatrix, out, *, scale: float, causal: bool,
+                     window: int = 0) -> None:
     """Launch ``bsr_softmax_normalize`` into ``out`` (data's shape, bf16 or
     fp32) from the stats ``m`` and ``l``."""
     kernel = "bsr_softmax_normalize"
+    wb = _window_blocks(kernel, window, causal)
     batch = _check_data(kernel, data, topology)
     _metadata(kernel, data.device, topology.row_indices, topology.indices)
     _stats_out(kernel, batch, topology, data.device, m, l)
@@ -193,10 +226,10 @@ def launch_normalize(data, m, l, topology: BlockSparseMatrix, out, *, scale: flo
     err = _lib().bsr_softmax_normalize(
         data.data_ptr(), m.data_ptr(), l.data_ptr(), topology.row_indices.data_ptr(),
         topology.indices.data_ptr(), out.data_ptr(), topology.nnz_blocks, topology.block_rows, batch,
-        topology.nnz_blocks * BS * BS, float(scale), int(causal), int(data.dtype == torch.float32),
+        topology.nnz_blocks * BS * BS, float(scale), int(causal), wb, int(data.dtype == torch.float32),
         int(out.dtype == torch.float32), _stream(data.device),
     )
-    _raise_on(kernel, err)
+    _raise_on(kernel, err, bool(wb))
 
 
 def launch_scores(q, k, topology: BlockSparseMatrix, scores, m, l, *, scale: float, causal: bool) -> None:
@@ -235,20 +268,20 @@ def launch_scores(q, k, topology: BlockSparseMatrix, scores, m, l, *, scale: flo
 
 
 # ------------------------------------------------------ kernel or plain --
-def _stats_cuda(data, topology, *, scale, causal):
+def _stats_cuda(data, topology, *, scale, causal, window=0):
     batch = data.shape[0] if data.ndim == 4 else 1
     m = torch.empty((batch, topology.rows), dtype=torch.float32, device=data.device)
     l = torch.empty_like(m)
-    launch_stats(data, topology, m, l, scale=scale, causal=causal)
+    launch_stats(data, topology, m, l, scale=scale, causal=causal, window=window)
     lead = data.shape[:-3]
     return m.reshape(lead + (topology.rows,)), l.reshape(lead + (topology.rows,))
 
 
-def _normalize_cuda(data, m, l, topology, *, scale, causal, out_dtype):
+def _normalize_cuda(data, m, l, topology, *, scale, causal, out_dtype, window=0):
     batch = data.shape[0] if data.ndim == 4 else 1
     out = torch.empty(data.shape, dtype=out_dtype, device=data.device)
     launch_normalize(data, m.reshape(batch, -1), l.reshape(batch, -1), topology, out, scale=scale,
-                     causal=causal)
+                     causal=causal, window=window)
     return out
 
 
@@ -280,16 +313,17 @@ registry.register("sdd_softmax_scores", "cuda_softmax", _on_cuda, _scores_cuda)
 registry.register("sdd_softmax_scores", "torch_reference", _on_cpu, scores_reference)
 
 
-def stats(data, topology: BlockSparseMatrix, *, scale: float, causal: bool):
+def stats(data, topology: BlockSparseMatrix, *, scale: float, causal: bool, window: int = 0):
     """(m, l) of the stats pass: the kernel on CUDA data, the plain version
     on CPU data."""
-    return registry.dispatch("bsr_softmax_stats", data, topology, scale=scale, causal=causal)
+    return registry.dispatch("bsr_softmax_stats", data, topology, scale=scale, causal=causal, window=window)
 
 
-def normalize(data, m, l, topology: BlockSparseMatrix, *, scale: float, causal: bool, out_dtype=None):
+def normalize(data, m, l, topology: BlockSparseMatrix, *, scale: float, causal: bool, out_dtype=None,
+              window: int = 0):
     """The normalize pass into ``out_dtype`` (default: the data's)."""
     return registry.dispatch("bsr_softmax_normalize", data, m, l, topology, scale=scale, causal=causal,
-                             out_dtype=out_dtype or data.dtype)
+                             out_dtype=out_dtype or data.dtype, window=window)
 
 
 def scores(q, k, topology: BlockSparseMatrix, *, scale: float, causal: bool):
@@ -306,9 +340,9 @@ class _BsrSoftmax(torch.autograd.Function):
     torch."""
 
     @staticmethod
-    def forward(ctx, data, topology, scale, causal):
-        m, l = stats(data, topology, scale=scale, causal=causal)
-        p = normalize(data, m, l, topology, scale=scale, causal=causal)
+    def forward(ctx, data, topology, scale, causal, window):
+        m, l = stats(data, topology, scale=scale, causal=causal, window=window)
+        p = normalize(data, m, l, topology, scale=scale, causal=causal, window=window)
         ctx.save_for_backward(p)
         ctx.meta = (topology, scale)
         return p
@@ -320,14 +354,15 @@ class _BsrSoftmax(torch.autograd.Function):
         pf, gf = p.float(), g.float()
         rowdot = segment((pf * gf).sum(dim=-1), topology.offsets, "sum")
         dx = scale * pf * (gf - rowdot[..., topology.row_indices.long(), :, None])
-        return dx.to(p.dtype), None, None, None
+        return dx.to(p.dtype), None, None, None, None
 
 
 def bsr_softmax_pallas(m: BlockSparseMatrix, *, scale: Optional[float] = None,
-                       causal: bool = False) -> BlockSparseMatrix:
+                       causal: bool = False, window: int = 0) -> BlockSparseMatrix:
     """Row softmax over the stored blocks by the two-pass kernels;
-    differentiable in ``m.data``. ``scale=None`` scales by 1."""
+    differentiable in ``m.data``. ``scale=None`` scales by 1; ``window``
+    (tokens, 0: none) as the module says."""
     if m.nnz_blocks == 0:
         return m
     sc = 1.0 if scale is None else float(scale)
-    return m.with_data(_BsrSoftmax.apply(m.data.contiguous(), m, sc, bool(causal)))
+    return m.with_data(_BsrSoftmax.apply(m.data.contiguous(), m, sc, bool(causal), int(window)))

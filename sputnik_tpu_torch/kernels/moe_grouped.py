@@ -29,6 +29,19 @@ tensors, fp32 models on the card) and under
 :func:`gemm_reference` is the plain version of one launch, on the launch's
 own description (:class:`Gemm`): the CPU tests run the whole autograd
 Function on it, and ``chip_smoke.py`` holds each launch against it.
+
+The dropless top-k SwiGLU MoE (``models/moe.py::topk_moe_forward``) runs
+the same kernel ragged, forward only: its routed rows sit in expert groups
+padded to whole row tiles of ``tile_rows`` (64 or 128), and each row tile
+reads its expert from ``tile_expert`` on the device (-1: a tile past the
+routed rows, skipped). :func:`ragged_swiglu_ffn` is two launches, ``h =
+silu(x w_gate_e) * (x w_up_e)`` in bf16 (the SwiGLU epilogue: ``w13``
+holds each expert's gate columns, then its up columns) and ``y = h
+w2_e`` in fp32; :func:`ragged_swiglu_reference` is its plain version,
+fp32 products per expert. Both dispatch as op ``moe_ragged_swiglu``:
+``cuda_grouped`` for bf16 CUDA problems without autograd, ``d`` a multiple
+of 128 and ``F`` of 64, then ``torch_reference`` for CPU problems (and
+``forced_variant``); a CUDA problem the kernels refuse raises.
 """
 
 from __future__ import annotations
@@ -46,15 +59,18 @@ from sputnik_tpu_torch.ops import registry
 
 __all__ = ["grouped_ffn", "grouped_ffn_reference", "GroupedFfn", "Operand", "Gemm", "plan", "gemm",
            "gemm_reference", "split3", "split3_reference", "forward_gemms", "backward_gemms", "ffn_forward",
-           "ffn_backward", "LAUNCHES"]
+           "ffn_backward", "ragged_gemms", "ragged_swiglu_ffn", "ragged_swiglu_reference", "LAUNCHES",
+           "RAGGED_LAUNCHES"]
 
-# Kernel launches in this process, by kernel; each launch adds one.
+# Kernel launches in this process, by kernel; each launch adds one. A
+# ragged launch of moe_grouped_gemm also adds one to RAGGED_LAUNCHES.
 LAUNCHES = {"moe_grouped_gemm": 0, "moe_split3": 0}
+RAGGED_LAUNCHES = 0
 
 # Layouts: (A stored (K, M), B stored (K, N), terms of A, terms of B).
 FORWARD, DATA_GRAD, WEIGHT_GRAD = 0, 1, 2
 LAYOUTS = {FORWARD: (False, True, 1, 1), DATA_GRAD: (False, False, 3, 1), WEIGHT_GRAD: (True, True, 1, 3)}
-EPI_F32, EPI_BF16, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2, 3
+EPI_F32, EPI_BF16, EPI_GELU, EPI_GELU_GRAD, EPI_SWIGLU = 0, 1, 2, 3, 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +90,11 @@ class Gemm:
     ``out`` ((terms, rows, cols); expert e's tile starts ``e * out_step[0]``
     rows and ``e * out_step[1]`` columns in). ``aux`` is the fp32
     pre-activation, (rows, cols) like one term of ``out``: written by
-    ``EPI_GELU`` when given, read by ``EPI_GELU_GRAD``."""
+    ``EPI_GELU`` when given, read by ``EPI_GELU_GRAD``. A ragged launch
+    (``tile_expert``: int32, one entry per row tile of ``tile_rows``) has
+    ``experts`` 1 and reads B's expert per row tile. ``glu``, with
+    ``EPI_SWIGLU``: B holds ``2 n`` columns per expert, the gate's and,
+    ``glu`` columns on, the up projection's; ``n`` outputs."""
 
     kind: int
     experts: int
@@ -87,6 +107,9 @@ class Gemm:
     out_step: Tuple[int, int]
     epi: int
     aux: Optional[torch.Tensor] = None
+    tile_expert: Optional[torch.Tensor] = None
+    tile_rows: int = 0
+    glu: int = 0
 
 
 # A tile's throughput relative to 128 x 256 when every SM is busy: smaller
@@ -100,15 +123,15 @@ TILE_RATES = {(128, 256): 1.0, (64, 256): 0.89, (128, 128): 0.89, (64, 128): 0.8
 
 
 @functools.lru_cache(maxsize=None)
-def plan(m: int, n: int, experts: int, sms: int) -> Tuple[int, int]:
+def plan(m: int, n: int, experts: int, sms: int, bm_only: int = 0) -> Tuple[int, int]:
     """(BM, BN) of a launch on a card of ``sms`` streaming multiprocessors
     (one CTA each: the ring takes the shared memory): the tile with the
     highest rate times the share of its waves that is busy (the last wave's
-    idle SMs counted), the wider one on a tie. BM is 64 or 128, BN 128 or
-    256."""
+    idle SMs counted), the wider one on a tie. BM is 64 or 128 (``bm_only``
+    when given), BN 128 or 256."""
     best = None
     for (bm, bn), rate in TILE_RATES.items():
-        if m % bm or n % bn:
+        if m % bm or n % bn or (bm_only and bm != bm_only):
             continue
         tiles = experts * (m // bm) * (n // bn)
         key = (rate * tiles / (-(-tiles // sms) * sms), bn)
@@ -129,17 +152,19 @@ def _lib():
     lib = _build.load("moe_grouped")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.moe_grouped_gemm.argtypes = ([i32] * 7 + [ptr] + [i64] * 3 + [i32] * 2 + [ptr] + [i64] * 3 + [i32] * 2
-                                     + [ptr] + [i64] * 3 + [ptr, i32, ptr])
+                                     + [ptr] + [i64] * 3 + [ptr, i32, ptr, i32, ptr])
     lib.moe_split3.argtypes = [ptr, ptr, i64, ptr]
     for fn in (lib.moe_grouped_gemm, lib.moe_split3):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _raise_on(kernel: str, err: int) -> None:
+def _raise_on(kernel: str, err: int, ragged: bool = False) -> None:
+    global RAGGED_LAUNCHES
     if err:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     LAUNCHES[kernel] += 1
+    RAGGED_LAUNCHES += int(ragged)
 
 
 def _within(name: str, t: torch.Tensor, step, experts: int, rows: int, cols: int) -> None:
@@ -164,8 +189,23 @@ def _check(g: Gemm) -> None:
         if op.t.shape[-1] % 8:
             raise ValueError(f"moe_grouped_gemm: {name}'s rows of {op.t.shape[-1]} elements are not 16-byte "
                              "multiples (TMA)")
+    if (g.epi == EPI_SWIGLU) != (g.glu > 0) or (g.glu and (g.kind != FORWARD or g.glu < g.n or g.glu % 64)):
+        raise ValueError(f"moe_grouped_gemm: the SwiGLU epilogue goes with a forward launch and a glu offset of "
+                         f"at least n, a multiple of 64 (epi {g.epi}, glu {g.glu}, n {g.n})")
+    b_cols = g.glu + g.n if g.glu else g.n
+    if g.tile_expert is not None:
+        te = g.tile_expert
+        if g.kind != FORWARD or g.experts != 1 or g.tile_rows not in (64, 128) or g.m % g.tile_rows:
+            raise ValueError(f"moe_grouped_gemm: a ragged launch is a forward one with experts 1 and M {g.m} in "
+                             f"row tiles of 64 or 128, got kind {g.kind}, experts {g.experts}, tile_rows "
+                             f"{g.tile_rows}")
+        if te.dtype != torch.int32 or te.device != g.out.device or not te.is_contiguous() \
+                or tuple(te.shape) != (g.m // g.tile_rows,):
+            raise ValueError(f"moe_grouped_gemm: tile_expert must be contiguous int32 ({g.m // g.tile_rows},) on "
+                             f"{g.out.device}")
+    # A ragged launch's experts of B are device ids, not read here: one must fit.
+    _within("b", g.b.t, g.b.step, g.experts, *((g.k, b_cols) if b_mn else (b_cols, g.k)))
     _within("a", g.a.t, g.a.step, g.experts, *((g.k, g.m) if a_mn else (g.m, g.k)))
-    _within("b", g.b.t, g.b.step, g.experts, *((g.k, g.n) if b_mn else (g.n, g.k)))
     _within("out", g.out, g.out_step, g.experts, g.m, g.n)
     want = (torch.float32 if g.epi == EPI_F32 else torch.bfloat16, 3 if g.epi == EPI_GELU_GRAD else 1)
     if (g.out.dtype, g.out.shape[0]) != want or g.out.ndim != 3:
@@ -182,18 +222,22 @@ def gemm(g: Gemm, tile: Optional[Tuple[int, int]] = None) -> None:
     ``tile`` (BM, BN) when given; raises ``ValueError`` for what the kernel
     does not take."""
     _check(g)
-    bm, bn = tile or plan(g.m, g.n, g.experts, _sms(g.out.device))
-    if bm not in (64, 128) or bn not in (128, 256) or g.m % bm or g.n % bn or g.k % 64:
-        raise ValueError(f"moe_grouped_gemm: no {bm} x {bn} tiling of M {g.m}, N {g.n}, K {g.k}")
+    width = 2 * g.n if g.glu else g.n  # the columns of B a row tile multiplies
+    bm, bn = tile or plan(g.m, width, g.experts, _sms(g.out.device), g.tile_rows)
+    if bm not in (64, 128) or bn not in (128, 256) or g.m % bm or width % bn or g.k % 64 \
+            or (g.tile_rows and bm != g.tile_rows):
+        raise ValueError(f"moe_grouped_gemm: no {bm} x {bn} tiling of M {g.m}, N {width}, K {g.k}")
     rows, cols = g.out.shape[1:]
+    ragged = g.tile_expert is not None
     err = _lib().moe_grouped_gemm(
         g.kind, bm, bn, g.experts, g.m, g.n, g.k,
         g.a.t.data_ptr(), *g.a.t.shape, *g.a.step, g.b.t.data_ptr(), *g.b.t.shape, *g.b.step,
         g.out.data_ptr(), cols, g.out_step[0] * cols + g.out_step[1], rows * cols,
         None if g.aux is None else g.aux.data_ptr(), g.epi,
+        g.tile_expert.data_ptr() if ragged else None, g.glu,
         torch.cuda.current_stream(g.out.device).cuda_stream,
     )
-    _raise_on("moe_grouped_gemm", err)
+    _raise_on("moe_grouped_gemm", err, ragged)
 
 
 def _expert_matrix(op: Operand, e: int, term: int, rows: int, cols: int) -> torch.Tensor:
@@ -212,10 +256,29 @@ def split3_reference(g: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)])
 
 
+def _ragged_reference(g: Gemm) -> None:
+    """gemm_reference of a ragged forward launch: each row tile against
+    its expert's B (tiles of expert -1 untouched), fp32 products, the
+    epilogue in fp32."""
+    width = g.glu + g.n if g.glu else g.n
+    for t, e in enumerate(g.tile_expert.tolist()):
+        if e < 0:
+            continue
+        rows = slice(t * g.tile_rows, (t + 1) * g.tile_rows)
+        a = g.a.t[0, rows, :g.k].float()
+        r0, c0 = e * g.b.step[0], e * g.b.step[1]
+        acc = a @ g.b.t[0, r0:r0 + g.k, c0:c0 + width].float()
+        if g.epi == EPI_SWIGLU:
+            acc = F.silu(acc[:, :g.n]) * acc[:, g.glu:g.glu + g.n]
+        g.out[0, rows, :g.n] = acc.to(g.out.dtype)
+
+
 def gemm_reference(g: Gemm) -> None:
     """The plain version of one launch, on any device: each expert's
     operands sliced as the tensor maps read them, fp32 products, the
     epilogue in fp32."""
+    if g.tile_expert is not None:
+        return _ragged_reference(g)
     a_mn, b_mn, terms_a, terms_b = LAYOUTS[g.kind]
     for e in range(g.experts):
         acc = 0.0
@@ -367,3 +430,70 @@ def _cuda_can(x, w1, w2, experts, **_) -> bool:
 
 registry.register("moe_grouped_ffn", "cuda_grouped", _cuda_can, grouped_ffn)
 registry.register("moe_grouped_ffn", "torch_reference", lambda *args, **kw: True, grouped_ffn_reference)
+
+
+# ------------------------------------------- the ragged SwiGLU FFN (top-k) --
+def ragged_gemms(x, w13, w2, experts: int, tile_expert, tile_rows: int, h, y) -> list:
+    """The ragged SwiGLU FFN's two launches: h = silu(x w_gate_e) * (x
+    w_up_e) in bf16, then y = h w2_e in fp32, expert e of each row tile
+    from ``tile_expert``. x (rows, d); w13 (d, E * 2F), expert e's gate
+    columns then its up columns; w2 (E * F, d)."""
+    rows, d = x.shape
+    f = w2.shape[0] // experts
+    return [
+        Gemm(FORWARD, 1, rows, f, d, Operand(x[None], (0, 0)), Operand(w13[None], (0, 2 * f)), h[None], (0, 0),
+             EPI_SWIGLU, tile_expert=tile_expert, tile_rows=tile_rows, glu=f),
+        Gemm(FORWARD, 1, rows, d, f, Operand(h[None], (0, 0)), Operand(w2[None], (f, 0)), y[None], (0, 0),
+             EPI_F32, tile_expert=tile_expert, tile_rows=tile_rows),
+    ]
+
+
+def ragged_swiglu_ffn(x, w13, w2, experts: int, tile_expert, tile_rows: int, *, run: Callable = gemm):
+    """y (rows, d) fp32 of the ragged SwiGLU FFN through ``run`` (the
+    kernel, or :func:`gemm_reference`); the rows of tiles with expert -1
+    are left unwritten."""
+    h = torch.empty((x.shape[0], w2.shape[0] // experts), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    for g in ragged_gemms(x, w13, w2, experts, tile_expert, tile_rows, h, y):
+        run(g)
+    return y
+
+
+def ragged_swiglu_reference(x, w13, w2, experts: int, tile_expert, tile_rows: int) -> torch.Tensor:
+    """The plain version: per expert present, fp32 products on fp32 copies
+    of its rows and weights, h rounded to x's dtype; rows of tiles with
+    expert -1 are zero. Reads the experts present back to the host."""
+    d, f = x.shape[1], w2.shape[0] // experts
+    row_expert = tile_expert.long().repeat_interleave(tile_rows)
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in torch.unique(row_expert[row_expert >= 0]).tolist():
+        idx = torch.nonzero(row_expert == e).squeeze(1)
+        gu = x[idx].float() @ w13[:, e * 2 * f:(e + 1) * 2 * f].float()
+        h = (F.silu(gu[:, :f]) * gu[:, f:]).to(x.dtype)
+        y[idx] = h.float() @ w2[e * f:(e + 1) * f].float()
+    return y
+
+
+def _ragged_cuda_can(x, w13, w2, experts, tile_expert, tile_rows, **_) -> bool:
+    """bf16 CUDA operands with no gradient wanted (forward only), d a
+    multiple of 128, F of 64, rows in whole tiles of 64 or 128."""
+    ts = (x, w13, w2, tile_expert)
+    if not all(t.is_cuda for t in ts) or {x.dtype, w13.dtype, w2.dtype} != {torch.bfloat16}:
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts[:3]):
+        return False
+    d, f = x.shape[1], w2.shape[0] // experts
+    return (x.ndim == 2 and d % 128 == 0 and f % 64 == 0 and tile_rows in (64, 128) and x.shape[0] % tile_rows == 0
+            and tuple(w13.shape) == (d, 2 * experts * f) and tuple(w2.shape) == (experts * f, d))
+
+
+registry.register("moe_ragged_swiglu", "cuda_grouped", _ragged_cuda_can, ragged_swiglu_ffn)
+def _ragged_plain_can(x, w13, w2, *_, **__) -> bool:
+    """CPU operands only: on the card a problem the kernels refuse (a
+    gradient wanted, other dtypes or widths) raises, rather than running
+    the per-expert loop that reads the experts back to the host; the
+    plain version runs there only under ``forced_variant``."""
+    return not any(t.is_cuda for t in (x, w13, w2))
+
+
+registry.register("moe_ragged_swiglu", "torch_reference", _ragged_plain_can, ragged_swiglu_reference)

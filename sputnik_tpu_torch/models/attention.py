@@ -8,6 +8,15 @@ kernels), and the band and top-k decode attention. Heads are a batch axis
 of the ops (one kernel launch per op for all heads) where the JAX package
 ``vmap``-s a single-head function.
 
+Grouped-query attention (GQA): ``k`` and ``v`` may hold fewer heads than
+``q``, a divisor of its count; query head ``h`` reads key / value head
+``h // (H_q / H_kv)``. The unfused chain runs on the heads as one batch
+axis, keys and values repeated to the query heads; the decode path
+(:func:`decode_window_attention`) reads the caches' KV heads in place. A
+token-exact sliding ``window`` (query ``i`` keeps keys ``i - window < j <=
+i``) rides on the causal mask of the BSR softmax; the JAX package has no
+such mask.
+
 ``fused=True`` routes as the JAX package does, with its "concrete
 metadata" read as "metadata known on the host"
 (``BlockSparseMatrix.host_known``): host-known topologies go to
@@ -39,6 +48,7 @@ __all__ = [
     "block_sparse_attention",
     "multihead_block_sparse_attention",
     "decode_band_attention",
+    "decode_window_attention",
 ]
 
 
@@ -145,20 +155,30 @@ def multihead_block_sparse_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     fused: bool = False,
+    window: int = 0,
 ) -> torch.Tensor:
     """(H, T, dh) attention over a score topology shared by all heads: one
     SDD, one softmax and one DSD for all heads, or with ``fused=True`` the
     flash kernels: ``flash_mha`` for host-known metadata, else
-    ``flash_block_attention`` for each head (one launch for all). Returns
-    (H, T, dh)."""
+    ``flash_block_attention`` for each head (one launch for all). ``k`` and
+    ``v`` may have fewer heads (GQA, a divisor of H); ``window`` (tokens,
+    under ``causal``) is the token-exact sliding window, unfused only.
+    Returns (H, T, dh)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if k.shape[0] != q.shape[0]:
+        if q.shape[0] % k.shape[0] or v.shape[0] != k.shape[0]:
+            raise ValueError(f"{q.shape[0]} query heads do not group over {k.shape[0]} key / value heads")
+        rep = q.shape[0] // k.shape[0]
+        k, v = k.repeat_interleave(rep, dim=0), v.repeat_interleave(rep, dim=0)
+    if window and fused:
+        raise ValueError("a sliding window takes the unfused chain (fused=False)")
     if fused:
         if topology.host_known:
             return flash_mha(q, k, v, topology, causal=causal, scale=scale)
         return flash_attention_heads(q, k, v, topology, causal=causal, scale=scale)
     scores = ops.sdd(q.contiguous(), k.contiguous(), topology, transpose_b=True)
-    probs = ops.bsr_softmax(scores, scale=scale, causal=causal)
+    probs = ops.bsr_softmax(scores, scale=scale, causal=causal, window=window)
     return ops.dsd(probs, v.contiguous())
 
 
@@ -275,3 +295,54 @@ def decode_band_attention(
     kb = k_cache.reshape(k_cache.shape[:-2] + (s_k, bs, dh))
     vb = v_cache.reshape(v_cache.shape[:-2] + (s_k, bs, dh))
     return _attend_pages(q, kb[..., idx, :, :], vb[..., idx, :, :], sel_valid, scale)
+
+
+@tracing.traced("attention", inputs=(0, 1, 2))
+def decode_window_attention(
+    q: torch.Tensor,  # (..., H, dh): one decode step
+    k_cache: torch.Tensor,  # (..., H_kv, T, dh)
+    v_cache: torch.Tensor,
+    pos: int,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode-step attention of the token at ``pos`` over the cache's keys
+    ``(pos - window, pos]`` (``window=None``: every key ``<= pos``), with
+    the query heads grouped over the cache's KV heads (GQA: query head h
+    reads KV head ``h // (H / H_kv)``), the cache read in place, not
+    expanded. Scores in the cache dtype (fp32 accumulation), the softmax in
+    fp32, the probabilities rounded to the cache dtype for the product with
+    v, as the prefill's SDD -> softmax -> DSD chain rounds them. ``pos`` is
+    a host int, or a 0-d integer tensor on the cache's device, read there
+    (a decode step captured in a CUDA graph): then the shapes do not depend
+    on it, the keys are a fixed span masked to the same set (the window's
+    ``window`` keys ending at ``pos``; with ``window=None``, or a tensor
+    window, the whole cache). Returns (..., H, dh)."""
+    hkv, t, dh = k_cache.shape[-3:]
+    h = q.shape[-2]
+    on_device = isinstance(pos, torch.Tensor)
+    if h % hkv or (not on_device and pos >= t):
+        raise ValueError(f"{h} query heads over {hkv} KV heads, position {pos} of a cache of {t}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    valid = None
+    if not on_device:
+        lo = 0 if window is None else max(0, pos - window + 1)
+        k = k_cache[..., lo:pos + 1, :]
+        v = v_cache[..., lo:pos + 1, :]
+    elif isinstance(window, int):
+        keys = pos - min(window, t) + 1 + torch.arange(min(window, t), device=k_cache.device)
+        valid = keys >= 0
+        k = k_cache.index_select(-2, keys.clamp(min=0))
+        v = v_cache.index_select(-2, keys.clamp(min=0))
+    else:
+        keys = torch.arange(t, device=k_cache.device)
+        valid = keys <= pos if window is None else (keys <= pos) & (keys > pos - window)
+        k, v = k_cache, v_cache
+    qg = q.reshape(q.shape[:-2] + (hkv, h // hkv, dh)).to(k.dtype)
+    s = torch.matmul(qg, k.transpose(-1, -2)).float() * scale  # (..., H_kv, group, keys)
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p, v).reshape(q.shape).to(q.dtype)

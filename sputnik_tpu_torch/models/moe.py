@@ -16,6 +16,16 @@ expert FFN by ``impl``:
   chain. Its backward recomputes through the unfused chain.
 * ``"bsr_unfused"``: the chain ``ops.sdd`` -> gelu -> ``ops.dsd``.
 
+:func:`topk_moe_forward` is the dropless top-k MoE with SwiGLU experts
+(``MoEConfig(top_k=..., activation="swiglu")``, Mellum2's FFN): fp32
+router softmax, top-k, optionally renormalised over the k, and
+``y = sum_k p_k * w2_e(silu(x w_gate_e) * (x w_up_e))`` over the token's
+experts e. The (token, slot) pairs are grouped by expert, each group
+padded to whole row tiles, with the offsets and each tile's expert
+computed on the device; the registry op ``moe_ragged_swiglu`` runs both
+products ragged (``kernels/moe_grouped.py``). Prefill and decode both take
+it.
+
 :func:`dropless_moe_forward` drops nothing: every expert's tokens are
 padded to a block multiple, and the block-diagonal topology of the step is
 built on the device from the routed counts (MegaBlocks' dropless
@@ -49,7 +59,7 @@ from sputnik_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "MoEConfig", "MoE", "block_diag_topology", "init_moe_params", "moe_forward", "moe_loss",
-    "dropless_topology", "dropless_moe_forward",
+    "dropless_topology", "dropless_moe_forward", "topk_moe_forward",
 ]
 
 
@@ -62,10 +72,16 @@ class MoEConfig:
     block_size: int = 128
     dtype: torch.dtype = torch.bfloat16
     router_aux_weight: float = 0.01
+    top_k: int = 1  # experts per token (topk_moe_forward)
+    norm_topk_prob: bool = False  # renormalise the top-k probabilities to sum 1
+    activation: str = "gelu"  # "gelu": w1 (d, E F); "swiglu": w13 (d, E 2F), gate then up per expert
 
     def __post_init__(self):
         if self.capacity % self.block_size or self.d_ff % self.block_size:
             raise ValueError("capacity and d_ff must be multiples of block_size")
+        if self.activation not in ("gelu", "swiglu") or not 1 <= self.top_k <= self.n_experts:
+            raise ValueError(f"activation must be 'gelu' or 'swiglu' and 1 <= top_k <= n_experts, got "
+                             f"{self.activation!r}, {self.top_k}")
 
     @property
     def padded_tokens(self) -> int:
@@ -78,8 +94,9 @@ class MoEConfig:
 
 class MoE(nn.Module):
     """Parameters of one MoE FFN, all trainable: ``router`` (d, E) fp32,
-    ``w1`` (d, E*F) and ``w2`` (E*F, d) in the model dtype, on ``device``
-    (``None``: the card)."""
+    ``w1`` (d, E*F) (SwiGLU: ``w13`` (d, E*2F), each expert's gate columns
+    then its up columns) and ``w2`` (E*F, d) in the model dtype, on
+    ``device`` (``None``: the card)."""
 
     def __init__(self, cfg: MoEConfig, *, device=None):
         super().__init__()
@@ -88,7 +105,10 @@ class MoE(nn.Module):
         d, ef = cfg.d_model, cfg.ff_total
         p = lambda *shape, dtype: nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))  # noqa: E731
         self.router = p(d, cfg.n_experts, dtype=torch.float32)
-        self.w1 = p(d, ef, dtype=cfg.dtype)
+        if cfg.activation == "swiglu":
+            self.w13 = p(d, 2 * ef, dtype=cfg.dtype)
+        else:
+            self.w1 = p(d, ef, dtype=cfg.dtype)
         self.w2 = p(ef, d, dtype=cfg.dtype)
 
     def forward(self, x, topology: Optional[BlockSparseMatrix] = None):
@@ -107,7 +127,7 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator, device=None) -> 
     at the JAX package's scales (``device=None``: the card)."""
     m = MoE(cfg, device=device)
     normal_(m.router, 1.0 / math.sqrt(cfg.d_model), generator)
-    normal_(m.w1, 1.0 / math.sqrt(cfg.d_model), generator)
+    normal_(m.w13 if cfg.activation == "swiglu" else m.w1, 1.0 / math.sqrt(cfg.d_model), generator)
     normal_(m.w2, 1.0 / math.sqrt(cfg.d_ff), generator)
     return m
 
@@ -431,3 +451,72 @@ def dropless_moe_forward(
     y = y_perm[dest] * prob.to(y_perm.dtype)[:, None]
     aux = e * torch.sum(probs.mean(dim=0) * onehot.float().mean(dim=0))
     return y.to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Dropless top-k MoE with SwiGLU experts (Mellum2)
+# ---------------------------------------------------------------------------
+
+
+def _topk_route(logits: torch.Tensor, cfg: MoEConfig, tile_rows: int):
+    """Top-k routing with the (token, slot) pairs grouped by expert, each
+    group padded to whole row tiles of ``tile_rows``. Returns (p (t, k)
+    fp32, dest (t * k,): each pair's row in the grouped order, src (rows,):
+    the token of each grouped row (padding rows take token 0, never read
+    back), tile_expert (tiles,) int32 with -1 past the routed tiles, counts
+    (E,), tiles per expert (E,)). Every tensor stays on the device; the
+    row bound is static: t * k rows in whole tiles plus one tile per
+    expert."""
+    t, e, k = logits.shape[0], cfg.n_experts, cfg.top_k
+    dev = logits.device
+    p, expert = torch.topk(torch.softmax(logits.float(), dim=-1), k, dim=-1)
+    if cfg.norm_topk_prob:
+        p = p / p.sum(dim=-1, keepdim=True)
+    flat = expert.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(0, flat, torch.ones_like(flat))
+    tiles = (counts + tile_rows - 1) // tile_rows
+    n_tiles = -(-t * k // tile_rows) + e
+    tile_end = torch.cumsum(tiles, dim=0)
+    tile_expert = torch.searchsorted(tile_end, torch.arange(n_tiles, device=dev), right=True)
+    tile_expert = torch.where(tile_expert < e, tile_expert, -1).to(torch.int32)
+    # Pairs in expert order (stable: token order within an expert): the
+    # i-th of them is the (i - first[e])-th row of expert e's group.
+    order = torch.argsort(flat, stable=True)
+    sorted_e = flat[order]
+    first = torch.cumsum(counts, dim=0) - counts
+    row = (tile_end - tiles)[sorted_e] * tile_rows + torch.arange(t * k, device=dev) - first[sorted_e]
+    dest = torch.empty_like(row).scatter_(0, order, row)
+    src = torch.zeros(n_tiles * tile_rows, dtype=torch.int64, device=dev).scatter_(
+        0, dest, torch.arange(t * k, device=dev) // k)
+    return p, dest, src, tile_expert, counts, tiles
+
+
+def tile_rows_for(tokens: int, cfg: MoEConfig) -> int:
+    """The row tile of the grouped products: 128 when the experts get 256
+    routed rows on average (a prefill), else 64 (decoding pads each
+    expert's few rows to one tile)."""
+    return 128 if tokens * cfg.top_k >= 256 * cfg.n_experts else 64
+
+
+@tracing.traced("moe", inputs=(1,))
+def topk_moe_forward(params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """Dropless top-k SwiGLU MoE of x (tokens, d) -> y, x's shape and
+    dtype. The equations, per token: ``p = softmax(x W_router)`` in fp32
+    (the fp32 router on x as given), its
+    top-k experts e_1..e_k with ``p_k`` renormalised by their sum when
+    ``norm_topk_prob``, and ``y = sum_k p_k * w2_e(silu(x w_gate_e) * (x
+    w_up_e))``, h = silu(.) * (.) rounded to the model dtype, the sum in
+    fp32. Nothing is read back to the host on the kernels' route. On the
+    card the kernels take bf16 operands, d a multiple of 128 and F of 64,
+    forward only; any other problem there raises NotImplementedError."""
+    t, d = x.shape
+    tile = tile_rows_for(t, cfg)
+    p, dest, src, tile_expert, counts, tiles = _topk_route(x.float() @ params.router.float(), cfg, tile)
+    if tracing.recording():
+        tracing.count("moe.assignments", t * cfg.top_k)
+        tracing.count_device("moe.rows_computed", tiles * tile)
+        tracing.count_device("moe.experts_used", counts > 0)
+    x_perm = x.to(cfg.dtype)[src]
+    y_perm = registry.dispatch("moe_ragged_swiglu", x_perm, params.w13, params.w2, cfg.n_experts, tile_expert, tile)
+    y = (y_perm[dest].reshape(t, cfg.top_k, d) * p[..., None]).sum(dim=1)
+    return y.to(x.dtype)

@@ -3,7 +3,9 @@
 
 Each element-row is normalized over that row's stored blocks only; absent
 blocks take no probability. ``causal=True`` masks the upper triangle of
-diagonal blocks and every block above the diagonal.
+diagonal blocks and every block above the diagonal; ``window`` (tokens, 0
+for none) also masks key ``j`` of query ``i`` where ``i - j >= window``,
+a token-exact sliding window that the JAX package does not have.
 
 Two variants, the JAX package's names:
 
@@ -30,12 +32,13 @@ from typing import Optional
 import torch
 
 from sputnik_tpu_torch.formats import BlockSparseMatrix
-from sputnik_tpu_torch.kernels.bsr_softmax import bsr_softmax_pallas, segment
+from sputnik_tpu_torch.kernels.bsr_softmax import bsr_softmax_pallas, segment, window_keep
 
 __all__ = ["bsr_softmax", "sdd_softmax"]
 
 
-def _bsr_softmax_chain(m: BlockSparseMatrix, scale: Optional[float], causal: bool) -> BlockSparseMatrix:
+def _bsr_softmax_chain(m: BlockSparseMatrix, scale: Optional[float], causal: bool,
+                       window: int = 0) -> BlockSparseMatrix:
     """The JAX package's jnp chain: masked lanes at -inf, segment max and
     sum over the block-rows, fp32, returned in ``m``'s dtype."""
     bs = m.block_size
@@ -48,6 +51,8 @@ def _bsr_softmax_chain(m: BlockSparseMatrix, scale: Optional[float], causal: boo
         on_diag = (m.row_indices == m.indices)[:, None, None]
         below = (m.row_indices > m.indices)[:, None, None]
         keep = torch.where(on_diag, intra[None], below)
+        if window:
+            keep = keep & window_keep(m, window)
         data = data.masked_fill(~keep, float("-inf"))
     rows = m.row_indices.long()
     # The max only keeps exp finite: the result does not depend on it, so
@@ -66,20 +71,24 @@ def bsr_softmax(
     scale: Optional[float] = None,
     causal: bool = False,
     variant: Optional[str] = None,
+    window: int = 0,
 ) -> BlockSparseMatrix:
     """Row-wise softmax over the nonzero blocks; batched data is normalized
     per batch entry. ``variant``: ``"pallas"`` (the kernels), ``"jnp"`` (the
     torch chain) or ``None`` (the kernels on the card, the chain on the CPU);
-    other names raise. ``scale=None`` applies no scaling."""
+    other names raise. ``scale=None`` applies no scaling. ``window`` needs
+    ``causal``."""
+    if window and not causal:
+        raise ValueError("bsr_softmax: a window applies under the causal mask only")
     if m.nnz_blocks == 0:
         return m
     if variant is None:
         variant = "pallas" if m.data.is_cuda else "jnp"
     if variant == "jnp":
-        return _bsr_softmax_chain(m, scale, causal)
+        return _bsr_softmax_chain(m, scale, causal, window)
     if variant != "pallas":
         raise ValueError(f"bsr_softmax variant must be 'pallas' or 'jnp', got {variant!r}")
-    return bsr_softmax_pallas(m, scale=scale, causal=causal)
+    return bsr_softmax_pallas(m, scale=scale, causal=causal, window=window)
 
 
 def sdd_softmax(

@@ -1546,3 +1546,141 @@ def test_spans_on_card_share_the_profilers_clock(cuda):
     assert prefill_ms <= tracing.elapsed_ms(gen.start, mark.at) <= gen.device_ms()
     assert w.counters["moe.tokens_kept"] == int(sum(kept))
     assert any(k.startswith("dispatch.") and k.rsplit(".", 1)[1].startswith("cuda_") for k in w.counters)
+
+
+# Mellum2-12B-A2.5B: top-8 of 64 SwiGLU experts of 896 at hidden 2304, and
+# 1024-token windows on the 9-block band.
+MELLUM = dict(d_model=2304, d_ff=896, n_experts=64, capacity=128, top_k=8, norm_topk_prob=True, activation="swiglu")
+
+
+def _mellum_routed(cuda, t, seed):
+    cfg = moe.MoEConfig(**MELLUM)
+    params = moe.init_moe_params(cfg, torch.Generator(device=cuda).manual_seed(seed), device=cuda)
+    params.requires_grad_(False)
+    x = torch.randn((t, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(seed + 1), device=cuda)
+    x = x.to(torch.bfloat16)
+    tile = moe.tile_rows_for(t, cfg)
+    _, _, src, tile_expert, _, _ = moe._topk_route(x.float() @ params.router.float(), cfg, tile)
+    return cfg, params, x, x[src], tile_expert, tile
+
+
+@pytest.mark.parametrize("t", [8, 1024])  # a decode step at batch 8 (64-row tiles); a prompt (128-row tiles)
+def test_ragged_swiglu_launches_match_plain(cuda, t):
+    """The two ragged launches at Mellum2's widths against gemm_reference on
+    the same descriptions and against the per-expert plain FFN, on the
+    routed rows (h rounded to bf16 in all three): within 2^-8 of y's max;
+    and topk_moe_forward through the registry (two ragged launches) against
+    forced_variant("torch_reference") within one bf16 ulp of its output's
+    max (2^-7): the bf16 output of two fp32 sums over 8 experts."""
+    cfg, params, x, xp, tile_expert, tile = _mellum_routed(cuda, t, 40)
+    live = tile_expert.long().repeat_interleave(tile) >= 0
+    y = moe_grouped.ragged_swiglu_ffn(xp, params.w13, params.w2, 64, tile_expert, tile)
+    for want in (moe_grouped.ragged_swiglu_ffn(xp, params.w13, params.w2, 64, tile_expert, tile,
+                                               run=moe_grouped.gemm_reference),
+                 moe_grouped.ragged_swiglu_reference(xp, params.w13, params.w2, 64, tile_expert, tile)):
+        assert testing.rel_max_error(y[live], want[live]) <= 2 ** -8
+    before = moe_grouped.RAGGED_LAUNCHES
+    out = moe.topk_moe_forward(params, x, cfg)
+    assert moe_grouped.RAGGED_LAUNCHES == before + 2
+    with registry.forced_variant("torch_reference"):
+        plain = moe.topk_moe_forward(params, x, cfg)
+    assert testing.rel_max_error(out, plain) <= 2 ** -7
+
+
+def test_ragged_swiglu_refuses_what_the_kernels_cannot_take_on_the_card(cuda):
+    """On the card the ragged op has no plain fallback: a gradient wanted
+    or a width the kernels refuse raises, rather than running the
+    per-expert loop."""
+    cfg, params, x, _, _, _ = _mellum_routed(cuda, 8, 43)
+    params.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="moe_ragged_swiglu"):
+        moe.topk_moe_forward(params, x, cfg)
+    odd = moe.MoEConfig(**dict(MELLUM, d_model=2304 - 128 + 64, d_ff=896))
+    p2 = moe.init_moe_params(odd, torch.Generator(device=cuda).manual_seed(44), device=cuda).requires_grad_(False)
+    with pytest.raises(NotImplementedError, match="moe_ragged_swiglu"):
+        moe.topk_moe_forward(p2, torch.zeros((8, odd.d_model), dtype=torch.bfloat16, device=cuda), odd)
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (64, 256), (128, 128), (128, 256)])
+def test_top1_launches_bitwise_as_ragged_launches(cuda, tile):
+    """The top-1 GELU forward launches (capacity slots, the expert from the
+    grid) and the same problems described ragged (one expert id per row
+    tile) give the same bits: the ragged route adds no arithmetic to the
+    grouped kernel, and the capacity launches keep theirs."""
+    e, c, d, f = 8, 128, 256, 512
+    x, w1, w2, _ = testing.moe_grouped_inputs(torch.Generator(device=cuda).manual_seed(41), e, c, d, f)
+    h, y = torch.empty((e * c, f), dtype=torch.bfloat16, device=cuda), torch.empty((e * c, d), device=cuda)
+    for g in moe_grouped.forward_gemms(x, w1, w2, e, h, y):
+        moe_grouped.gemm(g, tile)
+    tile_expert = torch.arange(e, dtype=torch.int32, device=cuda).repeat_interleave(c // tile[0])
+    h2, y2 = torch.full_like(h, float("nan")), torch.full_like(y, float("nan"))
+    ragged = [dataclasses.replace(g, experts=1, m=e * c, a=moe_grouped.Operand(g.a.t, (0, 0)), out_step=(0, 0),
+                                  out=out, tile_expert=tile_expert, tile_rows=tile[0])
+              for g, out in zip(moe_grouped.forward_gemms(x, w1, w2, e, h2, y2), (h2[None], y2[None]))]
+    for g in ragged:
+        moe_grouped.gemm(g, tile)
+    assert torch.equal(h, h2) and torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_windowed_softmax_kernels_match_chain(cuda, dtype):
+    """The windowed stats and normalize kernels (the 9-block band, window
+    1024, 4 heads) against their plain versions and the torch chain, and
+    two windowed launches; zero scores keep min(i + 1, 1024) keys a row."""
+    topo = attention.causal_block_topology(2048, window_blocks=9, device=cuda)
+    data = (torch.randn((4, topo.nnz_blocks, 128, 128), generator=torch.Generator(device=cuda).manual_seed(42),
+                        device=cuda) * 4).to(dtype)
+    kw = dict(scale=128 ** -0.5, causal=True, window=1024)
+    before = bsm.WINDOW_LAUNCHES
+    p = ops.bsr_softmax(topo.with_data(data), **kw).data
+    assert bsm.WINDOW_LAUNCHES == before + 2
+    m0, l0 = bsm.stats_reference(data, topo, **kw)
+    want = bsm.normalize_reference(data, m0, l0, topo, out_dtype=dtype, **kw)
+    chain = ops.bsr_softmax(topo.with_data(data), variant="jnp", **kw).data
+    tol = 2 ** -8 if dtype == torch.bfloat16 else 1e-6
+    assert float((p.float() - want.float()).abs().max()) <= tol
+    assert float((p.float() - chain.float()).abs().max()) <= tol
+    zeros = torch.zeros((1, topo.nnz_blocks, 128, 128), dtype=dtype, device=cuda)
+    pz = ops.bsr_softmax(topo.with_data(zeros), **kw).data[0]
+    kept = bsm.segment((pz > 0).float().sum(-1)[None], topo.offsets, "sum")[0].flatten()
+    assert torch.equal(kept, torch.clamp(torch.arange(2048, device=cuda) + 1, max=1024).float())
+
+
+def test_decode_graph_replays_the_eager_step(cuda):
+    """A Mellum2-style model at kernel widths (3 sliding + 1 full layers,
+    GQA 4/2 at head dim 128, window 256, top-4 of 16 SwiGLU experts, bf16):
+    the DecodeGraph's replays give the bits of the eager step with the
+    position on the device, and the eager step with the host position
+    within 2^-6 of the logits' max (the masked keys add zeros in another
+    order); lm_generate_batched replays it and serves the same tokens."""
+    rope = tr.RopeConfig(theta=500000.0, yarn_factor=16.0, original_max_position=256, beta_fast=32.0,
+                         beta_slow=1.0, attention_factor=1.2773)
+    cfg = tr.TransformerConfig(d_model=256, n_heads=4, n_kv_heads=2, head_dim=128, seq_len=640, n_experts=16,
+                               d_ff=128, n_layers=4, vocab=512, dtype=torch.bfloat16, norm="rmsnorm", rope=rope,
+                               layer_kinds=("sliding",) * 3 + ("full",), window=256, top_k=4, norm_topk_prob=True,
+                               moe_route="dropless", tied_head=False)
+    model = tr.init_lm_params(cfg, torch.Generator(device=cuda).manual_seed(50), device=cuda).requires_grad_(False)
+    prompts = torch.randint(0, 512, (8, 512), generator=torch.Generator(device=cuda).manual_seed(51), device=cuda)
+    assert tr.graphable(cfg, prompts.device)
+    per_seq = [tr.lm_prefill(model, p, cfg, 640) for p in prompts]
+    stacked = lambda: [{n: torch.stack([c[layer][n] for c, _ in per_seq]) for n in ("k", "v")}  # noqa: E731
+                       for layer in range(4)]
+    graph = tr.DecodeGraph(model, cfg, 8, 640)
+    graph.load(per_seq)
+    host, device = stacked(), stacked()
+    token = torch.stack([lg for _, lg in per_seq]).argmax(-1)
+    for pos in range(512, 520):
+        want, host = tr.lm_decode_step(model, token, host, pos, cfg)
+        same, device = tr.lm_decode_step(model, token, device, torch.tensor(pos, device=cuda), cfg)
+        got = graph.step(token, pos)
+        assert torch.equal(got, same), pos
+        assert testing.rel_max_error(got, want) <= 2 ** -6, pos
+        token = got.argmax(-1)
+    out = tr.lm_generate_batched(model, prompts, cfg, 9, max_len=640)
+    assert len(model._decode_graphs) == 1
+    eager = [torch.stack([lg for _, lg in per_seq]).argmax(-1)]
+    caches = stacked()
+    for i in range(8):
+        lg, caches = tr.lm_decode_step(model, eager[-1], caches, torch.tensor(512 + i, device=cuda), cfg)
+        eager.append(lg.argmax(-1))
+    assert torch.equal(out, torch.stack(eager, dim=1))

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests import tiny
+from benchmark.tests import tiny, tiny_source
 from sputnik_tpu_torch.models import moe
 from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.ops import registry
@@ -206,7 +206,9 @@ def test_store_cap_counts_what_it_loses(monkeypatch):
 
 @pytest.fixture(scope="module")
 def tiny_root(tmp_path_factory):
-    return tiny.make(tmp_path_factory.mktemp("tracing"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tiny, "BENCH", tiny_source.source(tmp_path_factory.mktemp("tracing_src")))
+        return tiny.make(tmp_path_factory.mktemp("tracing"))
 
 
 @pytest.mark.parametrize("cell,names", [
