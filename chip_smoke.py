@@ -20,8 +20,8 @@ Phases (any failure raises and the script exits non-zero):
    and DDS in all four modes at the 4096^2 / 25% headline shape, a random
    BSR with empty block-rows and unordered column indices at N 256 and 384,
    a random 25% SDD topology (every bsr_dsd_stream case twice, bitwise
-   equal); the three flash
-   kernels (forward with lse, dQ, dK/dV) at the training slice's shape
+   equal); the flash kernels (forward with lse: flash_mha_fwd_wgmma in
+   bf16, flash_mha_fwd in fp32; dQ, dK/dV) at the training slice's shape
    (8 heads, T = 2048, causal band of window 4), on a random non-causal
    topology with an empty block-row and an empty block-column, and with
    rectangular K/V (T = 1024, Tk = 2048); the fused FFN kernels at the MoE
@@ -35,9 +35,10 @@ Phases (any failure raises and the script exits non-zero):
    bf16, random weights from seed 0) serves 4 requests of 1024-token
    prompts, 32 new tokens each, through lm_generate_batched. Checks the
    token ids, that a second run gives the same tokens, that every prefill
-   layer launched SDD, the two softmax kernels and DSD once (16 launches
-   each) and moe_grouped_gemm twice (the MoE FFN's two products, 32), and
-   that parameters and caches live on the card.
+   layer launched the flash forward once (bsr_attention's
+   flash_mha_fwd_wgmma: 16 launches) and moe_grouped_gemm twice (the MoE
+   FFN's two products, 32), and that parameters and caches live on the
+   card.
 4. The same model in fp32 (TF32 off): each request's prefill logits through
    the kernels against the plain versions (registry.forced_variant), max
    |diff| <= 1e-3;
@@ -46,15 +47,16 @@ Phases (any failure raises and the script exits non-zero):
    warm-up and 100 timed iterations): device time from a CUDA graph of the
    100 calls, and the eager per-call time with the host's cost; DSD at the
    4096^2 / 25% headline beside bsr_dsd_pipelined, PyTorch's BSR matmul and
-   its bound; the flash kernels at 8 heads, T = 2048, d_head 128, bf16,
-   through their wrappers.
+   its bound; the wmma flash kernels at 8 heads, T = 2048, d_head 128,
+   bf16 (the forward through launch_fwd, the backward through its
+   wrappers).
 6. The training slice, bf16, the same model: 5 Adam steps (lr 3e-3) on a
    fixed batch of 4 sequences of 2048 tokens (loss = mean of the 4
    lm_loss), once with fused_attention (flash kernels) and once without
    (SDD -> softmax -> DSD and their VJPs). Checks finite losses, the last
    below the first, parameters, gradients and Adam state on the card, and
-   the exact launches per step: fused 16 of each flash kernel and no
-   sparse kernel; unfused 64 bsr_dsd_stream, 32 bsr_sdd, 16 of each
+   the exact launches per step: fused 16 of flash_mha_fwd_wgmma, dQ and
+   dK/dV and no sparse kernel; unfused 64 bsr_dsd_stream, 32 bsr_sdd, 16 of each
    softmax kernel and no flash kernel; both 96 moe_grouped_gemm and 16
    moe_split3 (the MoE FFN's 2 products forward, the split and 4 products
    backward, per layer and sequence). Prints the wall time per step
@@ -62,7 +64,8 @@ Phases (any failure raises and the script exits non-zero):
 7. The same model in fp32 (TF32 off), both routes: one backward of the
    batch loss through the kernels against the plain versions
    (registry.forced_variant), every parameter's gradient within
-   1e-3 * max|g|; prints the worst parameter.
+   1e-3 * max|g|; prints the worst parameter. The fused run is the main
+   path of the wmma forward (flash_mha_fwd), which bf16 no longer takes.
 
 8. The MoE slice at bench/moe.py's default width (d_model 1024, 8 experts
    of d_ff 2048, 4096 tokens, capacity 512): (a) fp32, TF32 off: the
@@ -278,8 +281,18 @@ Phases (any failure raises and the script exits non-zero):
    the chain at T 4096; (b) the window's edge on zero scores; (c) device
    times at T 16384 (the table's row: the normalize pass). Both rows'
    launches are these phases'.
+20. The bf16 flash forward at head dim 128 (flash_mha_fwd_wgmma, TMA +
+   wgmma, GQA and the token-exact window in the kernel), Mellum2's prefill
+   attention (32 / 4 heads): (a) against the plain version and the unfused
+   chain at T 4096 (a full and a sliding layer), and its -Xptxas -v line
+   (phase 1's build; a spill fails); (b) device times at a 16k prompt's
+   full and sliding layers (a CUDA graph of 100 calls) beside the bound,
+   the chain, the wmma flash_mha_fwd (full layer: K and V repeated), SDPA
+   with a boolean mask (the library yardstick only) and the plain version
+   (eager, two heads at a time); the table's row is the full layer, its
+   launches phase 3's.
 
-The line before the last is {"kernels": [...]} (thirty-seven kernels, each
+The line before the last is {"kernels": [...]} (thirty-eight kernels, each
 with its launches on the main path, max error, time, plain time, bound and
 library time); the last line is {"ok": true, "device": {...}}.
 """
@@ -340,11 +353,14 @@ SERVE = tr.TransformerConfig(
 )
 N_REQUESTS, PROMPT, N_NEW = 4, 1024, 32
 TRAIN_BATCH, TRAIN_STEPS, LR = 4, 5, 3e-3
-FLASH = tuple(fm.LAUNCHES)  # flash_mha_fwd, flash_mha_dq, flash_mha_dkv
+FLASH = ("flash_mha_fwd", "flash_mha_dq", "flash_mha_dkv")  # the wmma kernels
 FFN = tuple(bsr_ffn.LAUNCHES)  # bsr_ffn_group, bsr_ffn_dropless
 SOFTMAX = tuple(bsm.LAUNCHES)  # bsr_softmax_stats, bsr_softmax_normalize, sdd_softmax
 GROUPED = tuple(mgk.LAUNCHES)  # moe_grouped_gemm, moe_split3
-KERNELS = ("bsr_dsd_stream", "bsr_sdd") + FLASH + FFN + SOFTMAX + GROUPED
+KERNELS = ("bsr_dsd_stream", "bsr_sdd") + tuple(fm.LAUNCHES) + FFN + SOFTMAX + GROUPED
+# The unfused attention chain's kernels: since bsr_attention takes the bf16
+# serving prefill, their main-path launches are the unfused training run's.
+CHAIN = ("bsr_dsd_stream", "bsr_sdd", "bsr_softmax_stats", "bsr_softmax_normalize")
 # The MoE slice: bench/moe.py's default config (the serving LM's MoE layer).
 MOE = moe.MoEConfig(d_model=1024, d_ff=2048, n_experts=8, capacity=512, dtype=torch.bfloat16)
 # lr 3e-3, as the LM's training phase: at this width lr 1e-2 (examples/
@@ -412,6 +428,16 @@ def wgmma_resources(report) -> None:
         print(f"  ptxas bsr_dsd_wgmma BM {bm:>3} BN {bn} ta={ta} tb={tb}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B, {smem} B static smem", flush=True)
     check(all(r[2] == r[3] == 0 for r in rows), "a wgmma kernel of bsr_dsd.cu spills")
+
+
+def flash_wgmma_resources(report) -> None:
+    """-Xptxas -v of flash_mha_fwd_wgmma's kernel; a spill fails."""
+    rows = [r for r in report if "wg10fwd_kernel" in r[0]]
+    check(len(rows) == 1, f"-Xptxas -v found {len(rows)} wgmma forwards in flash_mha.cu, not 1")
+    _, regs, spill_st, spill_ld, smem = rows[0]
+    print(f"  ptxas flash_mha_fwd_wgmma: {regs} registers, spill stores {spill_st} B, spill loads {spill_ld} B, "
+          f"{smem} B static smem", flush=True)
+    check(spill_st == spill_ld == 0, "flash_mha_fwd_wgmma spills")
 
 
 # ----------------------------------------------------------------- phase 2 --
@@ -505,13 +531,14 @@ def flash_cases(rng, errors):
         v, do = randn(rng, (h, tk, 128), dtype, 0.5), randn(rng, (h, t, 128), dtype, 0.5)
         kw = dict(causal=causal, scale=128 ** -0.5)
         errs = []
+        fwd = forward_kernel(dtype)
         for out_dtype in dict.fromkeys((torch.float32, dtype)):
             out, lse = fm.fwd(q, k, v, topo, out_dtype=out_dtype, **kw)
             ref_out, ref_lse = fm.fwd_reference(q, k, v, topo, out_dtype=out_dtype, **kw)
             dvec = (do.float() * ref_out.float()).sum(-1)
             args = (q, k, v, do, ref_lse, dvec, topo)
             pairs = {
-                "flash_mha_fwd": [(out, ref_out), (lse, ref_lse)],
+                fwd: [(out, ref_out), (lse, ref_lse)],
                 "flash_mha_dq": [(fm.dq(*args, out_dtype=out_dtype, **kw),
                                   fm.dq_reference(*args, out_dtype=out_dtype, **kw))],
                 "flash_mha_dkv": list(zip(fm.dkv(*args, out_dtype=out_dtype, **kw),
@@ -618,7 +645,7 @@ def reset_launches() -> None:
     bsr_qstream.LAUNCHES = 0
     bsr_small.LAUNCHES.update(dict.fromkeys(bsr_small.LAUNCHES, 0))
     bsr_dss.LAUNCHES.update(dict.fromkeys(bsr_dss.LAUNCHES, 0))
-    fm.LAUNCHES.update(dict.fromkeys(FLASH, 0))
+    fm.LAUNCHES.update(dict.fromkeys(fm.LAUNCHES, 0))
     bsr_ffn.LAUNCHES.update(dict.fromkeys(FFN, 0))
     sell.LAUNCHES.update(dict.fromkeys(SELL, 0))
     bsm.LAUNCHES.update(dict.fromkeys(SOFTMAX, 0))
@@ -643,19 +670,27 @@ def launches(**nonzero) -> dict:
     return {**dict.fromkeys(KERNELS, 0), **nonzero}
 
 
-def expected_train_launches(fused: bool, n_seq: int, grouped: bool = True) -> dict:
-    """Launches of one loss backward over ``n_seq`` sequences. Fused: one of
-    each flash kernel per layer and sequence. Unfused, by ops/autodiff.py:
-    the forward runs 1 SDD + the two softmax kernels + 1 DSD, the backward
-    3 DSD/DDS launches (DSD's dB, SDD's dA and dB) + 1 SDD (DSD's dA) per
-    layer and sequence (the softmax's VJP is plain torch, as JAX's). With
-    ``grouped`` (a bf16 model: fp32 ones take the plain variant), the MoE
+def forward_kernel(dtype) -> str:
+    """The flash forward fm.fwd launches at head dim 128: the wgmma kernel
+    in bf16, the wmma one in fp32."""
+    return "flash_mha_fwd_wgmma" if dtype == torch.bfloat16 else "flash_mha_fwd"
+
+
+def expected_train_launches(fused: bool, n_seq: int, bf16: bool = True) -> dict:
+    """Launches of one loss backward over ``n_seq`` sequences. Fused: one
+    forward (forward_kernel), one dQ and one dK/dV per layer and sequence.
+    Unfused, by ops/autodiff.py: the forward runs 1 SDD + the two softmax
+    kernels + 1 DSD, the backward 3 DSD/DDS launches (DSD's dB, SDD's dA
+    and dB) + 1 SDD (DSD's dA) per layer and sequence (the softmax's VJP is
+    plain torch, as JAX's). With ``bf16`` (fp32 models take the plain
+    variant of the MoE FFN and the wmma forward), the MoE
     FFN's per layer and sequence: 2 grouped GEMMs forward, the cotangent's
     split and 4 grouped GEMMs backward (moe_grouped)."""
     per = SERVE.n_layers * n_seq
-    moe_ffn = dict(moe_grouped_gemm=6 * per, moe_split3=per) if grouped else {}
+    moe_ffn = dict(moe_grouped_gemm=6 * per, moe_split3=per) if bf16 else {}
     if fused:
-        return launches(**dict.fromkeys(FLASH, per), **moe_ffn)
+        fwd = forward_kernel(torch.bfloat16 if bf16 else torch.float32)
+        return launches(**{fwd: per}, flash_mha_dq=per, flash_mha_dkv=per, **moe_ffn)
     return launches(bsr_dsd_stream=4 * per, bsr_sdd=2 * per, bsr_softmax_stats=per, bsr_softmax_normalize=per,
                     **moe_ffn)
 
@@ -701,9 +736,10 @@ def train_steps(fused: bool, batch, name_limit: str) -> dict:
     return total
 
 
-def fp32_grads_against_plain(fused: bool, batch) -> None:
+def fp32_grads_against_plain(fused: bool, batch) -> dict:
     """One backward of the fp32 model through the kernels and one through
-    the plain versions; every parameter's gradient within 1e-3 * max|g|."""
+    the plain versions; every parameter's gradient within 1e-3 * max|g|.
+    Returns the launch counts of the run through the kernels."""
     cfg = dataclasses.replace(SERVE, dtype=torch.float32, fused_attention=fused)
     lm = tr.init_lm_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
     topos = tr.lm_topologies(cfg, device=DEV)
@@ -716,8 +752,10 @@ def fp32_grads_against_plain(fused: bool, batch) -> None:
             loss = batch_loss(lm, batch, cfg, topos)
             loss.backward()
         torch.cuda.synchronize()
-        want = launches() if plain else expected_train_launches(fused, len(batch), grouped=False)
+        want = launches() if plain else expected_train_launches(fused, len(batch), bf16=False)
         check(launch_counts() == want, f"fp32 fused={fused} plain={plain}: launches {launch_counts()}")
+        if not plain:
+            kernel_launches = launch_counts()
         losses.append(loss.item())
         grads.append({n: p.grad.detach().clone() for n, p in lm.named_parameters()})
     worst = max((float((grads[0][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30), n)
@@ -726,6 +764,7 @@ def fp32_grads_against_plain(fused: bool, batch) -> None:
           f"worst parameter {worst[1]}: max |kernels - plain| = {worst[0]:.3e} * max|g|", flush=True)
     check(all(torch.isfinite(g).all() for g in grads[0].values()), "non-finite fp32 gradient")
     check(worst[0] <= 1e-3, f"fp32 gradients of {worst[1]} differ by {worst[0]:.3e} * max|g| > 1e-3")
+    return kernel_launches
 
 
 # ----------------------------------------------------------------- phase 8 --
@@ -1274,6 +1313,104 @@ def window_times(name_limit: str) -> dict:
               f"{100 * bound / ms:.1f}% of it) on {name_limit}", flush=True)
         rows[kname] = (ms, plain_ms, None, bound, by)
     return {"bsr_softmax_window": rows["normalize"]}
+
+
+# ---------------------------------------------------------------- phase 20 --
+# Mellum2's prefill attention: 32 query heads over 4 KV heads of 128, full
+# causal layers and 1024-token windows (the 9-block band).
+MELLUM_HEADS, MELLUM_KV, MELLUM_WINDOW = 32, 4, 1024
+
+
+def mellum_attention_inputs(t: int, window: int, seed: int):
+    topo = attention.causal_block_topology(t, window_blocks=window // 128 + 1 if window else None, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+               for shape in ((MELLUM_HEADS, t, 128), (MELLUM_KV, t, 128), (MELLUM_KV, t, 128)))
+    return topo, q, k, v
+
+
+def mellum_chain(q, k, v, topo, window):
+    """The unfused chain as it ran before bsr_attention: K, V repeated to
+    the query heads, SDD, the windowed softmax, DSD."""
+    rep = q.shape[0] // k.shape[0]
+    s = ops.sdd(q, k.repeat_interleave(rep, 0), topo, transpose_b=True)
+    return ops.dsd(ops.bsr_softmax(s, scale=128 ** -0.5, causal=True, window=window), v.repeat_interleave(rep, 0))
+
+
+def flash_wgmma_plain(q, k, v, topo, window, heads=None):
+    """fwd_reference on ``heads`` (all by default), two at a time: the plain
+    version's T x T fp32 tiles of all 32 heads do not fit the card at 16k."""
+    heads = list(range(q.shape[0])) if heads is None else heads
+    grp = q.shape[0] // k.shape[0]
+    outs = []
+    for i in range(0, len(heads), 2):
+        hs = heads[i:i + 2]
+        kv = [x // grp for x in hs]
+        outs.append(fm.fwd_reference(q[hs], k[kv], v[kv], topo, causal=True, scale=128 ** -0.5, window=window,
+                                     out_dtype=torch.float32)[0])
+    return torch.cat(outs)
+
+
+def flash_wgmma_cases(errors) -> None:
+    """(a) a full and a sliding layer at T 4096, 32 / 4 heads: the fp32
+    output against the plain version within 2^-9 of max |v| (P is rounded
+    to bf16 before P V), and the bf16 output no further from it than the
+    chain's (which also rounds S to bf16)."""
+    worst = 0.0
+    for label, window in (("full", 0), ("sliding", MELLUM_WINDOW)):
+        topo, q, k, v = mellum_attention_inputs(4096, window, 200 + window)
+        out, _ = fm.fwd_wgmma(q, k, v, topo, causal=True, scale=128 ** -0.5, window=window, out_dtype=torch.float32)
+        heads = [0, 9, 17, 31]
+        want = flash_wgmma_plain(q, k, v, topo, window, heads)
+        e_plain = float((out[heads] - want).abs().max())
+        e_bf16 = float((out[heads].to(torch.bfloat16).float() - want).abs().max())
+        e_chain = float((mellum_chain(q, k, v, topo, window)[heads].float() - want).abs().max())
+        print(f"  {label} T 4096, {MELLUM_HEADS}/{MELLUM_KV} heads: kernel (fp32 out) vs plain {e_plain:.2e}, "
+              f"kernel (bf16 out) {e_bf16:.2e} and chain {e_chain:.2e} vs plain", flush=True)
+        check(e_plain <= 2 ** -9 * float(v.abs().max()) and e_bf16 <= e_chain, f"flash_mha_fwd_wgmma {label} is off")
+        worst = max(worst, e_plain)
+        del topo, q, k, v, out, want
+        torch.cuda.empty_cache()
+    errors["flash_mha_fwd_wgmma"] = max(errors.get("flash_mha_fwd_wgmma", 0.0), worst)
+
+
+def flash_wgmma_times(name_limit: str) -> dict:
+    """(b) device times at a 16k prompt's full and sliding layers: the
+    kernel, the chain, the wmma forward (full layer, K and V repeated),
+    SDPA with the boolean mask (library yardstick) and the plain version
+    (eager, two heads at a time); the bound from the allowed pairs' QK and
+    PV operations and q, k, v, o once. Returns the full layer's row."""
+    t, row = 16384, None
+    for label, window in (("full", 0), ("sliding", MELLUM_WINDOW)):
+        topo, q, k, v = mellum_attention_inputs(t, window, 210 + window)
+        kern = time_ms(lambda: fm.fwd_wgmma(q, k, v, topo, causal=True, scale=128 ** -0.5, window=window))[0]
+        chain = time_ms(lambda: mellum_chain(q, k, v, topo, window), warmup=2, iters=10)[0]
+        pairs = t * (t + 1) // 2 if not window else sum(min(i + 1, window) for i in range(t))
+        flops = 4 * 128 * MELLUM_HEADS * pairs
+        nbytes = 2 * (MELLUM_HEADS + MELLUM_KV) * t * 128 * 2
+        bound, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        i, j = torch.arange(t, device=DEV)[:, None], torch.arange(t, device=DEV)[None, :]
+        mask = (j <= i) & (i - j < window) if window else j <= i
+        kr, vr = k.repeat_interleave(MELLUM_HEADS // MELLUM_KV, 0), v.repeat_interleave(MELLUM_HEADS // MELLUM_KV, 0)
+        lib = library_call("flash_mha_fwd_wgmma", lambda: F.scaled_dot_product_attention(
+            q[None], kr[None], vr[None], attn_mask=mask, scale=128 ** -0.5))
+        wmma = None
+        if not window:
+            out, lse = torch.empty_like(q), torch.empty((MELLUM_HEADS, t), device=DEV)
+            wmma = time_ms(lambda: fm.launch_fwd(q, kr, vr, topo, out, lse, causal=True, scale=128 ** -0.5),
+                           warmup=2, iters=10)[0]
+        plain = time_ms_eager(lambda: flash_wgmma_plain(q, k, v, topo, window), warmup=0, iters=1)
+        wmma_text = f", wmma flash_mha_fwd {wmma * 1e3:.2f} us" if wmma else ""
+        lib_text = f"SDPA (boolean mask) {lib * 1e3:.2f} us" if lib else "SDPA: none"
+        print(f"  flash_mha_fwd_wgmma {label} T {t}, {MELLUM_HEADS}/{MELLUM_KV} heads: kernel {kern * 1e3:.2f} us "
+              f"({flops / kern / 1e9:.1f} TFLOP/s), bound {bound * 1e3:.2f} us ({by}; {100 * bound / kern:.1f}% of "
+              f"it), chain {chain * 1e3:.2f} us{wmma_text}, {lib_text}, plain {plain * 1e3:.2f} us on {name_limit}",
+              flush=True)
+        if label == "full":
+            row = {"flash_mha_fwd_wgmma": (kern, plain, lib, bound, by)}
+        del topo, q, k, v, kr, vr, mask
+        torch.cuda.empty_cache()
+    return row
 
 
 # ------------------------------------------------- bounds and library calls --
@@ -2204,7 +2341,7 @@ def topk_attention(rng, errors) -> dict:
         probs = [ops.sdd_softmax(q[i], k[i], topos[i], scale=scale, causal=True) for i in range(h)]
         torch.cuda.synchronize()
         counts = launch_counts()
-        want = launches(flash_mha_fwd=h, bsr_sdd=h, bsr_dsd_stream=h, bsr_softmax_stats=h,
+        want = launches(**{forward_kernel(dtype): h}, bsr_sdd=h, bsr_dsd_stream=h, bsr_softmax_stats=h,
                         bsr_softmax_normalize=2 * h, sdd_softmax=h)
         check(counts == want, f"top-k {dtype}: launches {counts}, expected {want}")
         check(all(not tp.host_known and tp.max_row_nnz == TOPK_PAGES and tp.nnz_blocks == t // 128 * TOPK_PAGES
@@ -2236,13 +2373,13 @@ def topk_serving(name_limit: str) -> None:
     """(c): lm_generate_batched(mode="topk", k_pages=4) at the serving model,
     4 requests x 1024-token prompts x 32 new tokens, greedy (twice, equal)
     and at temperature 0.8 from a seeded generator (twice, equal); each
-    prefill layer launches SDD, the two softmax kernels and DSD once and
-    the grouped MoE FFN's two GEMMs, the top-k decode steps no kernel."""
+    prefill layer launches the flash forward (bsr_attention) once and the
+    grouped MoE FFN's two GEMMs, the top-k decode steps no kernel."""
     lm = tr.init_lm_params(SERVE, torch.Generator(device=DEV).manual_seed(0), device=DEV)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(0, SERVE.vocab, (N_REQUESTS, PROMPT))).to(DEV)
     kw = dict(mode="topk", k_pages=TOPK_PAGES)
     n = SERVE.n_layers * N_REQUESTS
-    want = launches(bsr_sdd=n, bsr_dsd_stream=n, bsr_softmax_stats=n, bsr_softmax_normalize=n, moe_grouped_gemm=2 * n)
+    want = launches(flash_mha_fwd_wgmma=n, moe_grouped_gemm=2 * n)
     for label, extra in (("greedy", {}), ("temperature 0.8", dict(temperature=0.8))):
         runs, walls = [], []
         for _ in range(2):
@@ -2321,7 +2458,8 @@ def attn_kernel_times(rng, name_limit: str, yard: dict) -> dict:
     for kname, (kern, plain) in passes.items():
         (ms, call), (plain_ms, _) = time_ms(kern), time_ms(plain)
         lib = one[kname][2]
-        print(f"  flash_block_attention ({kname}) H=1 T={t} {nnz} blocks bf16: kernel {ms * 1e3:.2f} us device / "
+        label = forward_kernel(bf16) if kname == "flash_mha_fwd" else kname  # what fm.fwd runs in bf16
+        print(f"  flash_block_attention ({label}) H=1 T={t} {nnz} blocks bf16: kernel {ms * 1e3:.2f} us device / "
               f"{call * 1e3:.2f} us call, plain {plain_ms * 1e3:.2f} us, "
               f"{'library %.2f us (SDPA, boolean band mask)' % (lib * 1e3) if lib else 'library: none'}, bound "
               f"{one[kname][0] * 1e3:.2f} us ({one[kname][1]}; {one[kname][0] / ms:.3f} of it) on {name_limit}",
@@ -3840,13 +3978,15 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
               bsr_ssd._kernel, bsr_dss._lib, bsm._lib, bsr_small._lib, bsr_qstream._kernel, bsr_pipe._kernel,
               mxu_probe._lib, bsr_qstream._qkernel, bsr_cres._lib, bsr_sdd._bres_kernel, bsr_panel._lib,
               bsr_cstack._kernel, fa._fold_lib, mgk._lib)
-    with concurrent.futures.ThreadPoolExecutor(len(builds) + 2) as pool:  # one nvcc per source, together
+    with concurrent.futures.ThreadPoolExecutor(len(builds) + 3) as pool:  # one nvcc per source, together
         report = pool.submit(_build.ptxas_report, "bsr_dsd")
         grouped_report = pool.submit(_build.ptxas_report, "moe_grouped")
+        flash_report = pool.submit(_build.ptxas_report, "flash_mha")
         for built in [pool.submit(f) for f in builds]:
             built.result()
         wgmma_resources(report.result())
         grouped_resources(grouped_report.result())
+        flash_wgmma_resources(flash_report.result())
     print(f"kernels built and loaded in {time.perf_counter() - start:.1f} s "
           f"(per library: {_build.build_seconds})", flush=True)
 
@@ -3872,9 +4012,8 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     torch.cuda.synchronize()
     main_launches = launch_counts()
     expected = SERVE.n_layers * N_REQUESTS
-    check(main_launches == launches(bsr_dsd_stream=expected, bsr_sdd=expected, bsr_softmax_stats=expected,
-                                    bsr_softmax_normalize=expected, moe_grouped_gemm=2 * expected),
-          f"kernel launches {main_launches}, expected {expected} of SDD, DSD and the softmax kernels, "
+    check(main_launches == launches(flash_mha_fwd_wgmma=expected, moe_grouped_gemm=2 * expected),
+          f"kernel launches {main_launches}, expected {expected} of the flash forward (bsr_attention), "
           f"{2 * expected} of moe_grouped_gemm (the MoE FFN's two products) and no other")
     check(tuple(tokens.shape) == (N_REQUESTS, N_NEW), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < SERVE.vocab)).all()), "token id out of range")
@@ -3972,11 +4111,12 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
                                            device=DEV).with_transpose_metadata()
     q, k, v, do = (randn(rng, (h, t, dh), bf16) for _ in range(4))
     kw = dict(causal=True, scale=dh ** -0.5)
-    out, lse = fm.fwd(q, k, v, topo, **kw)
+    out, lse = torch.empty_like(q), torch.empty((h, t), device=DEV)
+    fm.launch_fwd(q, k, v, topo, out, lse, **kw)  # the wmma forward (fm.fwd takes the wgmma one in bf16)
     dvec = (do.float() * out.float()).sum(-1)
     bwd = (q, k, v, do, lse, dvec, topo)
     times.update({
-        "flash_mha_fwd": (time_ms(lambda: fm.fwd(q, k, v, topo, **kw)),
+        "flash_mha_fwd": (time_ms(lambda: fm.launch_fwd(q, k, v, topo, out, lse, **kw)),
                           time_ms(lambda: fm.fwd_reference(q, k, v, topo, **kw))),
         "flash_mha_dq": (time_ms(lambda: fm.dq(*bwd, **kw)), time_ms(lambda: fm.dq_reference(*bwd, **kw))),
         "flash_mha_dkv": (time_ms(lambda: fm.dkv(*bwd, **kw)), time_ms(lambda: fm.dkv_reference(*bwd, **kw))),
@@ -4001,13 +4141,15 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     for fused in (True, False):
         train_launches[fused] = train_steps(fused, batch, name_limit)
         torch.cuda.empty_cache()
-    main_launches.update({k: train_launches[True][k] for k in FLASH})
-    main_launches["moe_split3"] = train_launches[True]["moe_split3"]
+    main_launches.update({k: train_launches[True][k] for k in ("flash_mha_dq", "flash_mha_dkv", "moe_split3")})
+    main_launches.update({k: train_launches[False][k] for k in CHAIN})
 
     print("== phase 7: training slice, fp32: gradients through the kernels against plain versions",
           flush=True)
     for fused in (True, False):
-        fp32_grads_against_plain(fused, batch)
+        fp32_launches = fp32_grads_against_plain(fused, batch)
+        if fused:  # the wmma forward's main path: fp32 (bf16 takes flash_mha_fwd_wgmma)
+            main_launches["flash_mha_fwd"] = fp32_launches["flash_mha_fwd"]
         torch.cuda.empty_cache()
 
     print(f"== phase 8: the MoE slice at bench width (d_model {MOE.d_model}, {MOE.n_experts} experts "
@@ -4273,14 +4415,21 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     main_launches["moe_grouped_ragged"] = mgk.RAGGED_LAUNCHES
     main_launches["bsr_softmax_window"] = bsm.WINDOW_LAUNCHES
     torch.cuda.empty_cache()
+    print(f"== phase 20: the bf16 flash forward at head dim 128 (flash_mha_fwd_wgmma) at Mellum2's prefill "
+          f"attention, {MELLUM_HEADS} / {MELLUM_KV} heads of 128", flush=True)
+    print("(a) against the plain version and the chain at T 4096, a full and a sliding layer", flush=True)
+    flash_wgmma_cases(errors)
+    print("(b) times at T 16384 (CUDA-graph device time; the plain version eager)", flush=True)
+    p20_times = flash_wgmma_times(name_limit)
+    torch.cuda.empty_cache()
 
-    # launches: the serving run of phase 3 for the sparse kernels, the fused
-    # training run of phase 6 for the flash kernels, the bf16 MoE training
-    # runs of phase 8 for the FFN kernels, the fine-tune and the attention
-    # chain of phase 9 for the SELL kernels, the routes and gradients of
-    # phase 10 for the sparse-output kernels, the serving run of phase 3 for
-    # the softmax kernels and the content-routed attention of phase 11 (b)
-    # for sdd_softmax, the block-RigL fine-tune of phase 12 (c) for the
+    # launches: the unfused training run of phase 6 for SDD, DSD and the
+    # softmax kernels, the fused training run of phase 6 for the flash
+    # backward kernels and of phase 7 (fp32) for the wmma forward, the
+    # bf16 MoE training runs of phase 8 for the FFN kernels, the fine-tune
+    # and the attention chain of phase 9 for the SELL kernels, the routes
+    # and gradients of phase 10 for the sparse-output kernels, the
+    # content-routed attention of phase 11 (b) for sdd_softmax, the block-RigL fine-tune of phase 12 (c) for the
     # small-block kernels and the int8 serving of phase 12 (d) for bsr_bres
     # and bsr_dsd_stream_q8, the benchmark path of phase 13 (c)-(e) for the
     # probes, and the variant= / forced_variant routes of phase 13 (b) for
@@ -4289,8 +4438,9 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     # for bsr_qstream, bsr_cres, bsr_gres and bsr_sdd_bres, and the
     # benchmark path of phase 15 (c)-(e) for bsr_panel and bsr_cstack, and
     # the ring and sequence-parallel attention of phase 16 (b)-(c) for
-    # flash_band_fold, and the serving run of phase 3 for moe_grouped_gemm
-    # and the fused training run of phase 6 for moe_split3.
+    # flash_band_fold, the serving run of phase 3 for moe_grouped_gemm and
+    # flash_mha_fwd_wgmma, and the fused training run of phase 6 for
+    # moe_split3.
     sources = {
         "bsr_dsd_stream": ("sputnik_tpu_torch/csrc/bsr_dsd.cu", "sputnik_tpu/kernels/bsr_dsd.py:76"),
         "bsr_sdd": ("sputnik_tpu_torch/csrc/bsr_sdd.cu", "sputnik_tpu/kernels/bsr_sdd.py:229"),
@@ -4334,6 +4484,8 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
                                "none (the JAX package has no top-k SwiGLU MoE)"),
         "bsr_softmax_window": ("sputnik_tpu_torch/csrc/bsr_softmax.cu",
                                "none (the JAX package has no token-exact window)"),
+        "flash_mha_fwd_wgmma": ("sputnik_tpu_torch/csrc/flash_mha.cu",
+                                "sputnik_tpu/kernels/flash_mha.py:103 (bf16 at head dim 128, with GQA and the window)"),
     }
     check(all(main_launches[k] > 0 for k in sources), f"a kernel of the main path never launched: {main_launches}")
     # (ms, plain ms, library ms, bound ms, bound by) of every kernel.
@@ -4348,6 +4500,7 @@ def run_phases(name_limit: str, tune_dir: str) -> int:
     measured.update(p17_times)
     measured.update(p18_times)
     measured.update(p19_times)
+    measured.update(p20_times)
     print(name_limit, flush=True)
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

@@ -44,7 +44,30 @@
 // 64 FLOP/byte; L2 serves the K/V blocks that neighbouring tiles share.
 // This first version does not overlap loads with math (no cp.async / TMA
 // pipeline, wmma rather than wgmma), so it is bound by load latency.
+//
+// flash_mha_fwd_wgmma replaces that forward for bf16 at head dim 128, the
+// prefill attention of a model with 128-wide heads (Mellum2), where it is
+// also the unfused chain's replacement (models/attention.py: SDD, the
+// softmax and DSD wrote and re-read every score block in device memory).
+// At a 16k prompt a full layer is 2.2 TFLOP against ~70 MB of q, k, v and
+// out, ~30,000 FLOP a byte, so it is bound by operations, and what holds it
+// back is keeping the tensor cores fed: one CTA owns a 128-row query tile
+// of one head, two consumer warpgroups of 64 rows and one producer warp.
+// The producer TMA-loads Q once and keeps a ring of K and V tiles in flight
+// (separate barriers, so Q K^T starts before V lands), walking the row's
+// block-columns on the device. A consumer runs S = Q K^T as wgmma into fp32
+// registers, masks only the blocks the causal diagonal or the window's
+// first block cut, keeps the softmax online with the scale folded into
+// exp2, rounds P to bf16 in registers and feeds it as the register A
+// operand of P V: no score leaves the chip. While one warpgroup is in its
+// softmax the other's products run. GQA reads key / value head h /
+// kv_group in place; the grid runs the heads of one block-row next to
+// each other (the query heads of a group share K and V in L2) and the
+// longest causal rows first. Numerics as above: -1e30 for masked scores,
+// p rounded to bf16 before P V (S itself stays fp32), a row with no mass
+// gives zeros and lse = 1e30.
 #include "attn_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -388,6 +411,268 @@ int run(Pass pass, int in_f32, int dh, const Args& a, int tiles, int heads, void
                 : launch_dh<bf16>(pass, dh, a, tiles, heads, st);
 }
 
+// ------------------------------------------- forward, bf16 at DH 128: wgmma --
+namespace wg {
+
+constexpr int DH = 128;
+constexpr int CONSUMERS = 2;                        // warpgroups of 64 query rows
+constexpr int THREADS = CONSUMERS * 128 + 32;       // + one producer warp
+constexpr int STAGES = 2;                           // K / V ring depth
+constexpr int SLAB = 128 * 128;                     // bytes of 128 rows x 64 columns (one swizzled box)
+constexpr int TILE = 2 * SLAB;                      // a 128 x 128 bf16 tile: two slabs of 64 columns
+constexpr int KV_OFF = TILE;                        // stage s: K at KV_OFF + 2 s TILE, V one TILE after it
+constexpr int SMEM_BYTES = KV_OFF + STAGES * 2 * TILE + 1024;  // + alignment
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Args {
+  const int* offsets;  // (n_rows + 1,) block-row starts
+  const int* indices;  // block-columns
+  void* out;           // (H, T, DH), bf16 or fp32
+  float* lse;          // (H, T)
+  int heads, kv_group, t, n_rows;
+  float scale_log2;    // scale * log2(e)
+  int causal, window, out_f32;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (flushes denormals; 2^-1e30 is 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The two consumer warpgroups take turns to issue their products (named
+// barriers 1 and 2, one per warpgroup, each over both): warpgroup w waits
+// on its barrier before issuing and arrives on the other's after, so one
+// warpgroup's softmax runs while the other's products hold the tensor cores.
+__device__ __forceinline__ void turn_wait(int wgi) { hopper::named_barrier(1 + wgi, CONSUMERS * 128); }
+
+__device__ __forceinline__ void turn_pass(int wgi) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wgi), "r"(CONSUMERS * 128) : "memory");
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled TMA boxes need 1024-byte aligned destinations.
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t q_full, k_full[STAGES], v_full[STAGES], empty[STAGES];
+  __shared__ int stage_col[STAGES];  // the block-column each stage holds
+
+  const int h = blockIdx.x % a.heads;
+  const int r = a.n_rows - 1 - blockIdx.x / a.heads;  // the last (longest causal) block-rows first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int s_begin = a.offsets[r], n = a.offsets[r + 1] - s_begin;
+
+  if (warp == CONSUMERS * 4) {
+    // ---- producer warp: lane 0 loads Q, then K and V of each block in turn.
+    if (lane == 0 && n > 0) {
+      hopper::prefetch_tensormap(&q_map);
+      hopper::prefetch_tensormap(&k_map);
+      hopper::prefetch_tensormap(&v_map);
+      const int hk = h / a.kv_group;
+      hopper::mbar_arrive_expect_tx(&q_full, TILE);
+      hopper::tma_load_3d(smem, &q_map, &q_full, 0, r * 128, h);
+      hopper::tma_load_3d(smem + SLAB, &q_map, &q_full, 64, r * 128, h);
+      for (int i = 0; i < n; ++i) {
+        const int c = a.indices[s_begin + i];
+        const int stage = i % STAGES;
+        hopper::mbar_wait(&empty[stage], ((i / STAGES) & 1) ^ 1);
+        stage_col[stage] = c;  // published by the arrivals below
+        uint8_t* ks = smem + KV_OFF + stage * 2 * TILE;
+        hopper::mbar_arrive_expect_tx(&k_full[stage], TILE);
+        hopper::tma_load_3d(ks, &k_map, &k_full[stage], 0, c * 128, hk);
+        hopper::tma_load_3d(ks + SLAB, &k_map, &k_full[stage], 64, c * 128, hk);
+        hopper::mbar_arrive_expect_tx(&v_full[stage], TILE);
+        hopper::tma_load_3d(ks + TILE, &v_map, &v_full[stage], 0, c * 128, hk);
+        hopper::tma_load_3d(ks + TILE + SLAB, &v_map, &v_full[stage], 64, c * 128, hk);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: wg owns rows wg * 64 .. wg * 64 + 63 of the tile.
+  // wgmma's accumulator layout: register 4 j + e of thread t holds row
+  // 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+  const int wgi = warp >> 2, t = threadIdx.x & 127;
+  const int row0 = wgi * 64 + (t >> 5) * 16 + ((t & 31) >> 2);  // rows row0 (e < 2) and row0 + 8
+  const int qi0 = r * 128 + row0;
+  const int col0 = 2 * (t & 3);
+  const uint8_t* qs = smem + wgi * 64 * 128;  // this warpgroup's 64 rows of slab 0; slab 1 one SLAB on
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // m in the exp2 domain; l this thread's columns only
+  if (n > 0) hopper::mbar_wait(&q_full, 0);
+  if (n > 0 && wgi == 1) turn_pass(wgi);  // warpgroup 0 issues first
+
+  for (int i = 0; i < n; ++i) {
+    const int stage = i % STAGES;
+    const uint32_t parity = (i / STAGES) & 1;
+    const uint8_t* ks = smem + KV_OFF + stage * 2 * TILE;
+    const uint8_t* vs = ks + TILE;
+
+    // S = Q K^T: Q and K both K-major (head dim contiguous), 8 k16 steps.
+    float s[64];
+    hopper::mbar_wait(&k_full[stage], parity);
+    turn_wait(wgi);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int off = (kk >> 2) * SLAB + (kk & 3) * 32;
+      hopper::wgmma_m64n128k16<0, 0>(s, hopper::desc_sw128(qs + off, 16, 1024),
+                                     hopper::desc_sw128(ks + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    turn_pass(wgi);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+
+    // The online softmax in the exp2 domain. Only a block the causal
+    // diagonal or the window's edge cuts is masked element by element.
+    const int c = stage_col[stage];
+    const bool cut = (a.causal && c >= r) || (a.window > 0 && c * 128 <= r * 128 + 127 - a.window);
+    float m_new[2] = {m[0], m[1]};
+    if (cut) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qi0 + 8 * (e >> 1), kj = c * 128 + 8 * j + col0 + (e & 1);
+          const bool keep = (!a.causal || kj <= qi) && (a.window <= 0 || qi - kj < a.window);
+          s[4 * j + e] = keep ? s[4 * j + e] * a.scale_log2 : NEG_INF;
+          m_new[e >> 1] = fmaxf(m_new[e >> 1], s[4 * j + e]);
+        }
+      }
+    } else {
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      }
+      // scale > 0: the scaled row max is the scaled max
+      m_new[0] = fmaxf(m_new[0], mx[0] * a.scale_log2);
+      m_new[1] = fmaxf(m_new[1], mx[1] * a.scale_log2);
+    }
+    m_new[0] = quad_max(m_new[0]);
+    m_new[1] = quad_max(m_new[1]);
+    const float corr[2] = {exp2_approx(m[0] - m_new[0]), exp2_approx(m[1] - m_new[1])};
+    m[0] = m_new[0];
+    m[1] = m_new[1];
+    uint32_t p[32];  // P in bf16, two columns a register, in the register A operand's order
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int e = j & 1;  // registers 2 j, 2 j + 1 of S: row row0 + 8 e
+      float p0, p1;
+      if (cut) {
+        p0 = s[2 * j] > 0.5f * NEG_INF ? exp2_approx(s[2 * j] - m_new[e]) : 0.f;
+        p1 = s[2 * j + 1] > 0.5f * NEG_INF ? exp2_approx(s[2 * j + 1] - m_new[e]) : 0.f;
+      } else {
+        p0 = exp2_approx(fmaf(s[2 * j], a.scale_log2, -m_new[e]));
+        p1 = exp2_approx(fmaf(s[2 * j + 1], a.scale_log2, -m_new[e]));
+      }
+      sum[e] += p0 + p1;
+      p[j] = pack_bf16(p0, p1);
+    }
+    l[0] = l[0] * corr[0] + sum[0];
+    l[1] = l[1] * corr[1] + sum[1];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+    }
+
+    // O += P V: P from registers, V MN-major (head dim contiguous), 8 k16
+    // steps of 16 keys (2048 bytes of each slab), the two 64-wide slabs of
+    // the head dim one SLAB apart.
+    hopper::mbar_wait(&v_full[stage], parity);
+    hopper::fence_regs(o);
+    turn_wait(wgi);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t pa[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+      hopper::wgmma_m64n128k16_rs<1>(o, pa, hopper::desc_sw128(vs + kk * 2048, SLAB, 1024));
+    }
+    hopper::wgmma_commit();
+    if (wgi == 0 || i + 1 < n) turn_pass(wgi);  // the turns balance: warpgroup 1 passed first
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[stage]);
+  }
+
+  // ---- epilogue: O / l straight from the registers; lse = m ln 2 + log l.
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const float total = quad_sum(l[e2]);
+    const float inv = 1.0f / fmaxf(total, 1e-30f);
+    const int64_t row = int64_t(h) * a.t + qi0 + 8 * e2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float x0 = o[4 * j + 2 * e2] * inv, x1 = o[4 * j + 2 * e2 + 1] * inv;
+      const int64_t off = row * DH + 8 * j + col0;
+      if (a.out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(a.out) + off) = make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(a.out) + off) = pack_bf16(x0, x1);
+      }
+    }
+    if ((t & 3) == 0) a.lse[row] = total > 0.f ? m[e2] * LN2 + logf(total) : POS_BIG;
+  }
+}
+
+// The maps: q (heads, t, 128) and k, v (heads / kv_group, tk, 128), bf16,
+// contiguous, in boxes of 64 columns x 128 rows. Returns a cudaError_t value.
+int launch(const void* q, const void* k, const void* v, const Args& a, int tk, cudaStream_t st) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t kv_heads = uint64_t(a.heads / a.kv_group);
+  CUtensorMap q_map, k_map, v_map;
+  if (!hopper::encode(&q_map, q, DH, a.t, a.heads, DH, uint64_t(a.t) * DH, 64, 128) ||
+      !hopper::encode(&k_map, k, DH, tk, kv_heads, DH, uint64_t(tk) * DH, 64, 128) ||
+      !hopper::encode(&v_map, v, DH, tk, kv_heads, DH, uint64_t(tk) * DH, 64, 128))
+    return bad;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  fwd_kernel<<<a.n_rows * a.heads, THREADS, SMEM_BYTES, st>>>(q_map, k_map, v_map, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Each entry point returns cudaGetLastError() after the launch (or the
@@ -423,4 +708,21 @@ extern "C" int flash_mha_dkv(const void* q, const void* k, const void* v, const 
          static_cast<const int*>(offsets_t), static_cast<const int*>(indices_t), dk, dv, nullptr,
          t, tk, scale, causal, out_f32};
   return run(DKV, in_f32, dh, a, tk / TM, heads, stream);
+}
+
+// The bf16 forward at head dim 128 on TMA + wgmma (namespace wg above): q
+// (heads, t, 128), k and v (heads / kv_group, tk, 128), all bf16 and
+// contiguous; query head h reads key / value head h / kv_group. window > 0
+// keeps key j of query i only where i - window < j (under causal, j <= i
+// too). out (heads, t, 128) in bf16 or fp32, lse (heads, t) fp32, as
+// flash_mha_fwd writes them. t and tk are multiples of 128.
+extern "C" int flash_mha_fwd_wgmma(const void* q, const void* k, const void* v, const void* offsets,
+                                   const void* indices, void* out, void* lse, int heads, int kv_group, int t,
+                                   int tk, float scale, int causal, int window, int out_f32, void* stream) {
+  if (heads <= 0 || kv_group <= 0 || heads % kv_group || t % 128 || tk % 128 || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (t == 0) return static_cast<int>(cudaGetLastError());
+  wg::Args a{static_cast<const int*>(offsets), static_cast<const int*>(indices), out, static_cast<float*>(lse),
+             heads, kv_group, t, t / 128, scale * wg::LOG2E, causal, window, out_f32};
+  return wg::launch(q, k, v, a, tk, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks as inline PTX, shared by the kernels whose
 // mainloop is a TMA ring feeding wgmma (bsr_dsd.cu's bf16 path,
-// moe_grouped.cu):
+// moe_grouped.cu, flash_mha.cu's bf16 forward at head dim 128):
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count,
 //   and the parity wait of a producer / consumer ring;
@@ -10,7 +10,8 @@
 //   that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B leaves behind, the
 //   fence / commit / wait of a warpgroup's asynchronous products, and
 //   wgmma.mma_async m64nNk16 with bf16 operands and an fp32 accumulator in
-//   registers (N = 128 and 256).
+//   registers (N = 128 and 256; at N = 128 also with A in registers, as
+//   flash_mha.cu's forward multiplies its probabilities).
 //
 // No CUTLASS or CuTe header: the repo's sources are all a build needs. The
 // tensor maps are encoded on the host (encode(): cuTensorMapEncodeTiled,
@@ -140,10 +141,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // D (64 x 128, fp32, registers) += A (64 x 16) . B (16 x 128), both from shared
-// memory through their descriptors. TA / TB: 1 when that operand is stored
-// MN-major (M or N contiguous), 0 when K-major.
+// memory through their descriptors (accumulate = 0: D = A . B, the old D
+// ignored). TA / TB: 1 when that operand is stored MN-major (M or N
+// contiguous), 0 when K-major.
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -160,7 +163,35 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D (64 x 128, fp32, registers) += A (64 x 16, bf16, registers) . B (16 x 128,
+// shared memory through its descriptor). A is the accumulator layout's
+// fragment: thread t of the warpgroup holds in a[0] row 16 (t / 32) + (t %
+// 32) / 4, columns 2 (t % 4) + {0, 1} (the lower column in the low half), in
+// a[1] the same columns 8 rows down, in a[2] and a[3] those of columns + 8.
+// The registers of A must not change until the product is waited for. TB as
+// above.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
 }
 
 // D (64 x 256, fp32, registers) += A (64 x 16) . B (16 x 256), both from shared

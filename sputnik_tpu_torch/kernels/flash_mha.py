@@ -16,6 +16,17 @@ The kernels take bf16 or fp32 operands of one dtype, a head dim in
 ``HEAD_DIMS`` (the instantiated kernels) and block size 128; on CUDA
 tensors anything else raises ``ValueError``.
 
+bf16 at head dim 128 has a forward of its own, ``flash_mha_fwd_wgmma``
+(TMA + wgmma, the softmax online in registers; its outputs are the other
+forward's, so the same backward reads its lse); ``flash_mha_fwd`` keeps
+fp32 and the other head dims. It also reads fewer key / value heads than
+query heads in place (GQA) and takes a token-exact sliding ``window``,
+which makes it the registry op ``bsr_attention`` (variant
+``cuda_flash_wgmma``): the whole of ``multihead_block_sparse_attention``'s
+unfused chain (SDD, softmax, DSD) in one launch, where its predicate
+:func:`attention_fits` holds. It counts in
+``LAUNCHES["flash_mha_fwd_wgmma"]``.
+
 A (row, column) block stored twice counts once, as the JAX package's pair
 plan counts it (``np.unique``, ``sputnik_tpu/kernels/flash_mha.py:52-79``):
 for metadata known on the host ``flash_mha`` runs on the topology with the
@@ -51,10 +62,11 @@ from sputnik_tpu_torch.ops import registry
 __all__ = [
     "flash_mha", "fwd", "dq", "dkv", "fwd_reference", "dq_reference", "dkv_reference",
     "launch_fwd", "launch_dq", "launch_dkv", "LAUNCHES", "HEAD_DIMS", "FlashMHA", "passes", "dedup_topology",
+    "launch_fwd_wgmma", "fwd_wgmma", "attention_fits", "bsr_attention",
 ]
 
 # Kernel launches in this process, by kernel; each launch adds one.
-LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_dq": 0, "flash_mha_dkv": 0}
+LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_dq": 0, "flash_mha_dkv": 0, "flash_mha_fwd_wgmma": 0}
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # Head dims csrc/flash_mha.cu instantiates: every multiple of 16 up to 128
@@ -72,13 +84,17 @@ def _lib():
     for fn, n_ptrs in ((lib.flash_mha_fwd, 7), (lib.flash_mha_dq, 9), (lib.flash_mha_dkv, 10)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ptr] * n_ptrs + tail
+    # heads, kv_group, t, tk, scale, causal, window, out_f32, stream
+    lib.flash_mha_fwd_wgmma.restype = ctypes.c_int
+    lib.flash_mha_fwd_wgmma.argtypes = [ptr] * 7 + [i32] * 4 + [f32] + [i32] * 3 + [ptr]
     return lib
 
 
 # -------------------------------------------------------------- the checks --
-def _check_problem(kernel: str, topology: BlockSparseMatrix, **operands):
-    """(heads, t, tk) of a problem the kernels take; ValueError otherwise.
-    ``operands`` are q, k, v and dout, all of one dtype."""
+def _check_problem(kernel: str, topology: BlockSparseMatrix, kv_group: int = 1, **operands):
+    """(heads, t, tk, dh) of a problem the kernels take; ValueError
+    otherwise. ``operands`` are q, k, v and dout, all of one dtype; k and v
+    hold ``heads / kv_group`` heads."""
     q, k, v = operands["q"], operands["k"], operands["v"]
     for name, x in operands.items():
         if not x.is_cuda:
@@ -98,8 +114,8 @@ def _check_problem(kernel: str, topology: BlockSparseMatrix, **operands):
     if dh not in HEAD_DIMS or k.shape[2] != dh:
         raise ValueError(f"{kernel}: head dim must be one of {HEAD_DIMS} (the instantiated kernels) and equal "
                          f"for q and k, got {dh} and {k.shape[2]}")
-    if k.shape[0] != h:
-        raise ValueError(f"{kernel}: {h} query heads but {k.shape[0]} key heads")
+    if k.shape[0] * kv_group != h:
+        raise ValueError(f"{kernel}: {h} query heads but {k.shape[0]} key heads (kv_group {kv_group})")
     if "dout" in operands and operands["dout"].shape != q.shape:
         raise ValueError(f"{kernel}: dout is {tuple(operands['dout'].shape)}, expected {tuple(q.shape)}")
     if topology.block_size != 128:
@@ -158,6 +174,30 @@ def launch_fwd(q, k, v, topology, out, lse, *, causal: bool, scale: float) -> No
     _raise_on(kernel, err)
 
 
+def launch_fwd_wgmma(q, k, v, topology, out, lse, *, causal: bool, scale: float, window: int = 0) -> None:
+    """Launch ``flash_mha_fwd_wgmma`` into ``out`` (q's shape, bf16 or fp32)
+    and ``lse`` ((H, T) fp32): bf16 q (H, T, 128), k and v (H_kv, Tk, 128)
+    with H_kv a divisor of H; ``window`` (tokens, 0: none) keeps key ``j``
+    of query ``i`` only where ``i - j < window``."""
+    kernel = "flash_mha_fwd_wgmma"
+    if q.dtype != torch.bfloat16 or q.shape[-1] != 128:
+        raise ValueError(f"{kernel} takes bf16 at head dim 128, got {q.dtype} at {q.shape[-1]}")
+    if k.ndim != 3 or not 0 < k.shape[0] <= q.shape[0] or q.shape[0] % k.shape[0]:
+        raise ValueError(f"{kernel}: {q.shape[0]} query heads do not group over key heads {tuple(k.shape)}")
+    if window < 0:
+        raise ValueError(f"{kernel}: window must be >= 0, got {window}")
+    kv_group = q.shape[0] // k.shape[0]
+    h, t, tk, dh = _check_problem(kernel, topology, kv_group, q=q, k=k, v=v)
+    _check_tensor(kernel, "out", out, q.shape, KERNEL_DTYPES, q.device)
+    _check_tensor(kernel, "lse", lse, (h, t), (torch.float32,), q.device)
+    offsets, indices = _metadata(kernel, topology, False, q.device)
+    err = _lib().flash_mha_fwd_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets, indices, out.data_ptr(), lse.data_ptr(),
+        h, kv_group, t, tk, scale, int(causal), int(window), int(out.dtype == torch.float32), _stream(q.device),
+    )
+    _raise_on(kernel, err)
+
+
 def _check_backward(kernel, q, k, v, dout, lse, dvec, topology):
     h, t, tk, dh = _check_problem(kernel, topology, q=q, k=k, v=v, dout=dout)
     _check_tensor(kernel, "lse", lse, (h, t), (torch.float32,), q.device)
@@ -196,12 +236,13 @@ def launch_dkv(q, k, v, dout, lse, dvec, topology, dk_out, dv_out, *, causal: bo
 
 
 # ---------------------------------------------------------- plain versions --
-def _multiplicity(topology: BlockSparseMatrix, causal: bool, device) -> torch.Tensor:
+def _multiplicity(topology: BlockSparseMatrix, causal: bool, device, window: int = 0) -> torch.Tensor:
     """(T, Tk) fp32: how many times the topology stores each element's block
     (0 where it stores none, 2 for a block stored twice: the kernels walk
     every stored block), zeroed by the causal mask (query position >= key
     position, flash_attention._keep_mask's block rule for equal block
-    sizes)."""
+    sizes) and outside a token-exact ``window`` (query i keeps key j where
+    i - j < window; 0: none)."""
     bs, br, bc = topology.block_size, topology.block_rows, topology.block_cols
     flat = topology.row_indices.long().to(device) * bc + topology.indices.long().to(device)
     # Whole counts: the sum is exact in any order. No host tensor, so a CUDA
@@ -209,9 +250,11 @@ def _multiplicity(topology: BlockSparseMatrix, causal: bool, device) -> torch.Te
     counts = torch.zeros(br * bc, dtype=torch.float32, device=device).index_add_(
         0, flat, torch.ones(flat.shape, dtype=torch.float32, device=device))
     mult = counts.view(br, bc).repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+    gap = torch.arange(topology.rows, device=device)[:, None] - torch.arange(topology.cols, device=device)
     if causal:
-        mult = mult * (torch.arange(topology.rows, device=device)[:, None]
-                       >= torch.arange(topology.cols, device=device))
+        mult = mult * (gap >= 0)
+    if window:
+        mult = mult * (gap < window)
     return mult
 
 
@@ -224,9 +267,14 @@ def _p_ds(q, k, v, dout, lse, dvec, topology, causal, scale):
     return p, p * (torch.matmul(dout.float(), v.float().transpose(-1, -2)) - dvec[..., None])
 
 
-def fwd_reference(q, k, v, topology, *, causal: bool, scale: float, out_dtype=None):
-    """(out, lse) of the forward in dense fp32 math; lse is (H, T) fp32."""
-    mult = _multiplicity(topology, causal, q.device)
+def fwd_reference(q, k, v, topology, *, causal: bool, scale: float, out_dtype=None, window: int = 0):
+    """(out, lse) of the forward in dense fp32 math; lse is (H, T) fp32. k
+    and v may hold fewer heads (GQA: query head h reads head h / (H /
+    H_kv)); ``window`` as :func:`launch_fwd_wgmma`'s."""
+    if k.shape[0] != q.shape[0]:
+        rep = q.shape[0] // k.shape[0]
+        k, v = k.repeat_interleave(rep, dim=0), v.repeat_interleave(rep, dim=0)
+    mult = _multiplicity(topology, causal, q.device, window)
     s = torch.where(mult > 0, torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mult > 0, torch.exp(s - m), 0.0) * mult
@@ -252,12 +300,30 @@ def dkv_reference(q, k, v, dout, lse, dvec, topology, *, causal: bool, scale: fl
 
 # ------------------------------------------- kernel or plain, by device --
 def fwd(q, k, v, topology, *, causal: bool, scale: float, out_dtype=None):
-    """(out, lse): the kernel on CUDA tensors, the plain version on CPU ones."""
+    """(out, lse): the kernel on CUDA tensors (``flash_mha_fwd_wgmma`` for
+    bf16 at head dim 128, else ``flash_mha_fwd``), the plain version on CPU
+    ones."""
     if not q.is_cuda:
         return fwd_reference(q, k, v, topology, causal=causal, scale=scale, out_dtype=out_dtype)
+    if _wgmma_takes(q, k, v):
+        return fwd_wgmma(q, k, v, topology, causal=causal, scale=scale, out_dtype=out_dtype)
     out = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     launch_fwd(q, k, v, topology, out, lse, causal=causal, scale=scale)
+    return out, lse
+
+
+def _wgmma_takes(q, k, v) -> bool:
+    return all(x.dtype == torch.bfloat16 and x.shape[-1] == 128 for x in (q, k, v))
+
+
+def fwd_wgmma(q, k, v, topology, *, causal: bool, scale: float, out_dtype=None, window: int = 0):
+    """(out, lse) of ``flash_mha_fwd_wgmma`` on CUDA tensors (made
+    contiguous); k and v may hold fewer heads (GQA)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    launch_fwd_wgmma(q, k, v, topology, out, lse, causal=causal, scale=scale, window=window)
     return out, lse
 
 
@@ -365,6 +431,26 @@ def _launcher(name: str):
 
 registry.register("flash_mha", "cuda_flash", _on_cuda, _launcher("cuda_flash"))
 registry.register("flash_mha", "torch_reference", _on_cpu, _launcher("torch_reference"))
+
+
+def attention_fits(q, k, v, topology, *, causal: bool, scale: float, window: int = 0) -> bool:
+    """Whether ``bsr_attention``'s kernel takes the problem: bf16 q, k, v on
+    the card at head dim 128, the causal mask, metadata known on the host,
+    and no gradient recorded (the kernel has no backward of its own with
+    GQA and the window; autograd then runs the chain)."""
+    return (_on_cuda(q, k, v, topology) and causal and topology.host_known and topology.block_size == 128
+            and _wgmma_takes(q, k, v)
+            and not (torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))))
+
+
+def bsr_attention(q, k, v, topology, *, causal: bool, scale: float, window: int = 0) -> torch.Tensor:
+    """(H, T, 128) ``multihead_block_sparse_attention`` of the unfused chain
+    (every stored block, as SDD -> softmax -> DSD walk them) in one
+    ``flash_mha_fwd_wgmma`` launch: GQA and the window in the kernel."""
+    return fwd_wgmma(q, k, v, topology, causal=causal, scale=scale, window=window)[0]
+
+
+registry.register("bsr_attention", "cuda_flash_wgmma", attention_fits, bsr_attention)
 
 
 def flash_mha(

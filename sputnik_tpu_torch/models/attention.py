@@ -17,6 +17,13 @@ token-exact sliding ``window`` (query ``i`` keeps keys ``i - window < j <=
 i``) rides on the causal mask of the BSR softmax; the JAX package has no
 such mask.
 
+Unfused, the registry op ``bsr_attention`` goes first: where its predicate
+holds (bf16 on the card at head dim 128, causal, host-known metadata, no
+gradient recorded: a model's prefill at Mellum2's widths) one flash kernel
+computes the chain's result with no score in device memory, GQA and the
+window inside it (``kernels/flash_mha.py::bsr_attention``); everything
+else runs the chain, whose ops dispatch and count as before.
+
 ``fused=True`` routes as the JAX package does, with its "concrete
 metadata" read as "metadata known on the host"
 (``BlockSparseMatrix.host_known``): host-known topologies go to
@@ -36,6 +43,7 @@ from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.formats import BlockSparseMatrix
 from sputnik_tpu_torch.kernels.flash_attention import flash_attention_heads, flash_block_attention
 from sputnik_tpu_torch.kernels.flash_mha import flash_mha
+from sputnik_tpu_torch.ops import registry
 from sputnik_tpu_torch.utils import tracing
 from sputnik_tpu_torch.utils.device import resolve_device
 
@@ -163,16 +171,22 @@ def multihead_block_sparse_attention(
     ``flash_block_attention`` for each head (one launch for all). ``k`` and
     ``v`` may have fewer heads (GQA, a divisor of H); ``window`` (tokens,
     under ``causal``) is the token-exact sliding window, unfused only.
-    Returns (H, T, dh)."""
+    Unfused, the registry op ``bsr_attention`` computes it in one kernel
+    where it can. Returns (H, T, dh)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if k.shape[0] != q.shape[0]:
-        if q.shape[0] % k.shape[0] or v.shape[0] != k.shape[0]:
-            raise ValueError(f"{q.shape[0]} query heads do not group over {k.shape[0]} key / value heads")
-        rep = q.shape[0] // k.shape[0]
-        k, v = k.repeat_interleave(rep, dim=0), v.repeat_interleave(rep, dim=0)
+    if k.shape[0] != q.shape[0] and (q.shape[0] % k.shape[0] or v.shape[0] != k.shape[0]):
+        raise ValueError(f"{q.shape[0]} query heads do not group over {k.shape[0]} key / value heads")
     if window and fused:
         raise ValueError("a sliding window takes the unfused chain (fused=False)")
+    if not fused:
+        out = registry.dispatch_if_fits("bsr_attention", q, k, v, topology, causal=causal, scale=scale,
+                                        window=window)
+        if out is not None:
+            return out
+    if k.shape[0] != q.shape[0]:
+        rep = q.shape[0] // k.shape[0]
+        k, v = k.repeat_interleave(rep, dim=0), v.repeat_interleave(rep, dim=0)
     if fused:
         if topology.host_known:
             return flash_mha(q, k, v, topology, causal=causal, scale=scale)

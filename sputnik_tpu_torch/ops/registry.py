@@ -30,8 +30,8 @@ from typing import Callable, Dict, List, Optional
 
 from sputnik_tpu_torch.utils import tracing
 
-__all__ = ["KernelVariant", "register", "dispatch", "dispatch_name", "first_fit_name", "forced_variant",
-           "variants_for", "count_route"]
+__all__ = ["KernelVariant", "register", "dispatch", "dispatch_if_fits", "dispatch_name", "first_fit_name",
+           "forced_variant", "variants_for", "count_route"]
 
 # Enable with logging.getLogger("sputnik_tpu_torch").setLevel(logging.DEBUG).
 log = logging.getLogger("sputnik_tpu_torch")
@@ -130,6 +130,24 @@ def count_route(op: str, name: str) -> None:
 
 def dispatch(op: str, *args, variant: Optional[str] = None, **kwargs):
     v = _select(op, args, kwargs, variant)
+    count_route(op, v.name)
+    return v.launch(*args, **kwargs)
+
+
+def dispatch_if_fits(op: str, *args, **kwargs):
+    """:func:`dispatch` where one of ``op``'s variants takes the problem (or,
+    inside :func:`forced_variant`, where the forced name is one of them);
+    else None, with nothing counted. For an op that stands in for a chain
+    of other ops only where its kernel can: on None the caller runs the
+    chain, whose ops dispatch and count as they would without it. The
+    variant is picked once, by its predicate (no autotune cache)."""
+    variants = _REGISTRY.get(op, [])
+    if _FORCED:
+        v = next((v for v in variants if v.name == _FORCED[-1]), None)
+    else:
+        v = next((v for v in variants if v.can_implement(*args, **kwargs)), None)
+    if v is None:
+        return None
     count_route(op, v.name)
     return v.launch(*args, **kwargs)
 

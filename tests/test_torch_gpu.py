@@ -29,7 +29,10 @@ its plain version, ring and sequence-parallel attention through the
 per-rank bodies, and the raw-CSR softmax of a transpose built on the card),
 and the grouped MoE FFN's kernels (every launch in every tile against its
 plain version, the FFN at the MegaBlocks widths against the fp32 bmm path,
-and moe_forward's route through them).
+and moe_forward's route through them), and the bf16 flash forward at head
+dim 128 (flash_mha_fwd_wgmma: against its plain version and the unfused
+chain with GQA and the window, an empty row, the lse the backward reads,
+and the registry op bsr_attention's route in a Mellum2-style prefill).
 
 Every test here is marked ``gpu`` and skips without a card. The file imports
 no jax, so it runs on a machine that has only the port's dependencies:
@@ -62,7 +65,7 @@ from sputnik_tpu_torch.models import transformer as tr
 from sputnik_tpu_torch.models.convert import grads_to_numpy
 from sputnik_tpu_torch.ops import csr as csr_ops
 from sputnik_tpu_torch.ops import quant, registry
-from sputnik_tpu_torch.utils import testing
+from sputnik_tpu_torch.utils import testing, tracing
 from sputnik_tpu_torch.utils.testing import ATOL
 
 autotune = importlib.import_module("sputnik_tpu_torch.ops.autotune")
@@ -208,6 +211,13 @@ def test_small_lm_on_card_matches_cpu(cuda):
     assert bool(torch.isfinite(full).all())
 
 
+def _flash_counts(fwd_kernel, n_fwd, n_bwd):
+    """fm.LAUNCHES' deltas: ``n_fwd`` of the forward ``fwd_kernel``
+    (flash_mha_fwd_wgmma in bf16 at head dim 128, else flash_mha_fwd) and
+    ``n_bwd`` each of dQ and dK/dV."""
+    return {**dict.fromkeys(fm.LAUNCHES, 0), fwd_kernel: n_fwd, "flash_mha_dq": n_bwd, "flash_mha_dkv": n_bwd}
+
+
 def _flash_topology(kind, device):
     """(topology, T, Tk, causal) at small sizes."""
     ones = np.ones((3, BS, BS), np.float32)
@@ -225,7 +235,8 @@ def _flash_topology(kind, device):
 def test_flash_kernels_match_plain(cuda, kind, dtype):
     """Forward (out and lse), dQ and dK/dV against their plain versions,
     fp32 outputs, within the reference ATOL; the kernel's lse is the one
-    the backward kernels read."""
+    the backward kernels read. In bf16 the forward is flash_mha_fwd_wgmma
+    (non-causal, empty rows and rectangular K/V included)."""
     topo, t, tk, causal = _flash_topology(kind, cuda)
     rng = np.random.default_rng(4)
     q, do = (_randn(rng, (2, t, 128), cuda, dtype) for _ in range(2))
@@ -241,7 +252,8 @@ def test_flash_kernels_match_plain(cuda, kind, dtype):
     torch.testing.assert_close(fm.dq(*args, **kw), fm.dq_reference(*args, **kw), atol=ATOL, rtol=0)
     for got, want in zip(fm.dkv(*args, **kw), fm.dkv_reference(*args, **kw)):
         torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
-    assert {n: fm.LAUNCHES[n] - before[n] for n in before} == dict.fromkeys(before, 1)
+    fwd_kernel = "flash_mha_fwd_wgmma" if dtype == torch.bfloat16 else "flash_mha_fwd"
+    assert {n: fm.LAUNCHES[n] - before[n] for n in before} == _flash_counts(fwd_kernel, 1, 1)
     if kind == "empty_row_col":
         assert not out[:, 128:256].any() and not fm.dkv(*args, **kw)[0][:, 128:384].any()
 
@@ -280,7 +292,7 @@ def test_small_lm_grads_on_card_match_cpu(cuda, fused):
     flash = {n: fm.LAUNCHES[n] - launches[2][n] for n in fm.LAUNCHES}
     sparse = (bsr_dsd.LAUNCHES - launches[0], bsr_sdd.LAUNCHES - launches[1])
     if fused:
-        assert flash == dict.fromkeys(flash, cfg.n_layers) and sparse == (0, 0)
+        assert flash == _flash_counts("flash_mha_fwd", cfg.n_layers, cfg.n_layers) and sparse == (0, 0)
     else:
         assert flash == dict.fromkeys(flash, 0) and sparse == (4 * cfg.n_layers, 2 * cfg.n_layers)
     want_loss = tr.lm_loss(cpu, tokens, cfg)
@@ -808,9 +820,9 @@ def test_flash_block_attention_on_card(cuda, fused_backward):
         if plain:
             assert flash == dict.fromkeys(flash, 0) and chain == (0, 0, 0)
         elif fused_backward:
-            assert flash == dict.fromkeys(flash, 1) and chain == (0, 0, 0)
+            assert flash == _flash_counts("flash_mha_fwd", 1, 1) and chain == (0, 0, 0)
         else:  # forward; the chain's forward (SDD, softmax, DSD) and its VJPs
-            assert flash == {"flash_mha_fwd": 1, "flash_mha_dq": 0, "flash_mha_dkv": 0}
+            assert flash == _flash_counts("flash_mha_fwd", 1, 0)
             assert chain == (2, 4, 1)
         results.append([out.detach()] + [x.grad for x in xs])
     for got, want in zip(*results):
@@ -842,7 +854,7 @@ def test_default_config_lm_on_card(cuda, fused, dtype):
                   {n: bsm.LAUNCHES[n] - before[1][n] for n in bsm.LAUNCHES},
                   bsr_sdd.LAUNCHES - before[2], bsr_dsd.LAUNCHES - before[3])
         n = 0 if plain else cfg.n_layers
-        assert counts[0] == dict.fromkeys(fm.LAUNCHES, n if fused else 0)
+        assert counts[0] == (_flash_counts("flash_mha_fwd", n, n) if fused else dict.fromkeys(fm.LAUNCHES, 0))
         assert counts[1] == {"bsr_softmax_stats": 0 if fused else n, "bsr_softmax_normalize": 0 if fused else n,
                              "sdd_softmax": 0}
         assert counts[2:] == (0, 0)
@@ -1684,3 +1696,112 @@ def test_decode_graph_replays_the_eager_step(cuda):
         lg, caches = tr.lm_decode_step(model, eager[-1], caches, torch.tensor(512 + i, device=cuda), cfg)
         eager.append(lg.argmax(-1))
     assert torch.equal(out, torch.stack(eager, dim=1))
+
+
+# flash_mha_fwd_wgmma: Mellum2's prefill attention (32 / 4 heads of 128).
+def _chain(q, k, v, topo, window):
+    """The unfused chain as multihead_block_sparse_attention ran it before
+    bsr_attention: K, V repeated to the query heads, SDD, softmax, DSD."""
+    rep = q.shape[0] // k.shape[0]
+    s = ops.sdd(q, k.repeat_interleave(rep, 0), topo, transpose_b=True)
+    p = ops.bsr_softmax(s, scale=128 ** -0.5, causal=True, window=window)
+    return ops.dsd(p, v.repeat_interleave(rep, 0))
+
+
+@pytest.mark.parametrize("t,h,hkv,window", [(4096, 32, 4, 0), (16384, 32, 4, 0), (4096, 32, 4, 1024),
+                                            (4096, 8, 8, 0)])
+def test_flash_wgmma_matches_plain_and_chain(cuda, t, h, hkv, window):
+    """The forward against fwd_reference (dense fp32 on the query heads'
+    key / value heads; at T 16384 on two heads, the plain version's
+    T x T fp32 tiles) and against the chain, at Mellum2's full layers (T
+    4096, 16384), a sliding layer (window 1024 at T 4096: the window's edge
+    inside the first block of each row) and 8 / 8 heads. Tolerances: the
+    fp32 output within 2^-9 of max |v| of the plain version (P is rounded
+    to bf16 before P V, a relative 2^-9 of each weight; S and the sums stay
+    fp32); lse within 1e-4 (fp32 sums in another order); and the bf16
+    output no further from the plain version than the chain's, which also
+    rounds S to bf16."""
+    topo = attention.causal_block_topology(t, window_blocks=window // 128 + 1 if window else None, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(t + h + window)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+               for shape in ((h, t, 128), (hkv, t, 128), (hkv, t, 128)))
+    before = fm.LAUNCHES["flash_mha_fwd_wgmma"]
+    out, lse = fm.fwd_wgmma(q, k, v, topo, causal=True, scale=128 ** -0.5, window=window, out_dtype=torch.float32)
+    out16 = attention.multihead_block_sparse_attention(q, k, v, topo, causal=True, window=window)
+    assert fm.LAUNCHES["flash_mha_fwd_wgmma"] == before + 2
+    heads = [0, h - 1] if t > 4096 else list(range(h))
+    kv = [x // (h // hkv) for x in heads]
+    want, want_lse = fm.fwd_reference(q[heads], k[kv], v[kv], topo, causal=True, scale=128 ** -0.5, window=window,
+                                      out_dtype=torch.float32)
+    tol = 2 ** -9 * float(v.abs().max())
+    assert float((out[heads] - want).abs().max()) <= tol
+    assert float((lse[heads] - want_lse).abs().max()) <= 1e-4
+    assert torch.equal(out16, out.to(torch.bfloat16))
+    chain = _chain(q, k, v, topo, window)[heads]
+    assert float((out16[heads].float() - want).abs().max()) <= float((chain.float() - want).abs().max())
+
+
+def test_flash_wgmma_empty_row_and_lse(cuda):
+    """A block-row with no blocks gives zeros and lse 1e30, and on a full
+    causal topology the lse equals the wmma forward's (flash_mha_fwd, K and
+    V repeated) within 1e-4, so the backward kernels read the same
+    statistics from either forward."""
+    ones = np.ones((3, BS, BS), np.float32)
+    topo = testing.bsr_from_blocks(384, 384, [0, 2, 2], [0, 0, 2], ones, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(60)
+    q, k, v = (torch.randn((2, 384, 128), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
+    out, lse = fm.fwd_wgmma(q, k, v, topo, causal=True, scale=128 ** -0.5)
+    assert not out[:, 128:256].any() and bool((lse[:, 128:256] == fm.POS_BIG).all())
+    full = attention.causal_block_topology(2048, device=cuda)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+               for shape in ((8, 2048, 128), (2, 2048, 128), (2, 2048, 128)))
+    _, lse = fm.fwd_wgmma(q, k, v, full, causal=True, scale=128 ** -0.5)
+    wmma_lse = torch.empty_like(lse)
+    fm.launch_fwd(q, k.repeat_interleave(4, 0), v.repeat_interleave(4, 0), full, torch.empty_like(q), wmma_lse,
+                  causal=True, scale=128 ** -0.5)
+    assert float((lse - wmma_lse).abs().max()) <= 1e-4
+
+
+def test_bsr_attention_route_on_card(cuda):
+    """multihead_block_sparse_attention takes bsr_attention (one launch, no
+    SDD) where no gradient is recorded, and the chain where one is, bitwise
+    as the three ops called alone."""
+    topo = attention.causal_block_topology(1024, window_blocks=3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+               for shape in ((4, 1024, 128), (2, 1024, 128), (2, 1024, 128)))
+    before = (fm.LAUNCHES["flash_mha_fwd_wgmma"], bsr_sdd.LAUNCHES)
+    with torch.no_grad():
+        attention.multihead_block_sparse_attention(q, k, v, topo, causal=True, window=256)
+    assert (fm.LAUNCHES["flash_mha_fwd_wgmma"], bsr_sdd.LAUNCHES) == (before[0] + 1, before[1])
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = attention.multihead_block_sparse_attention(*leaves, topo, causal=True, window=256)
+    assert fm.LAUNCHES["flash_mha_fwd_wgmma"] == before[0] + 1 and bsr_sdd.LAUNCHES == before[1] + 1
+    assert torch.equal(got.detach(), _chain(q, k, v, topo, 256))
+
+
+def test_mellum_prefill_takes_bsr_attention(cuda):
+    """A Mellum2-style prefill (3 sliding + 1 full layers, GQA 4/2 at head
+    dim 128, window 256, bf16) counts dispatch.bsr_attention.cuda_flash_wgmma
+    once a layer and no SDD, and its logits agree with the same prefill
+    through the chain (bsr_attention's route closed) within 2^-5 of their
+    max: the chain rounds the scores to bf16, which moves a probability by
+    up to ~1%, and four layers carry it to the logits."""
+    rope = tr.RopeConfig(theta=500000.0, yarn_factor=16.0, original_max_position=256, beta_fast=32.0,
+                         beta_slow=1.0, attention_factor=1.2773)
+    cfg = tr.TransformerConfig(d_model=256, n_heads=4, n_kv_heads=2, head_dim=128, seq_len=640, n_experts=16,
+                               d_ff=128, n_layers=4, vocab=512, dtype=torch.bfloat16, norm="rmsnorm", rope=rope,
+                               layer_kinds=("sliding",) * 3 + ("full",), window=256, top_k=4, norm_topk_prob=True,
+                               moe_route="dropless", tied_head=False)
+    model = tr.init_lm_params(cfg, torch.Generator(device=cuda).manual_seed(52), device=cuda).requires_grad_(False)
+    prompt = torch.randint(0, 512, (512,), generator=torch.Generator(device=cuda).manual_seed(53), device=cuda)
+    start = tracing.position()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, logits = tr.lm_prefill(model, prompt, cfg, 640)
+    counters = tracing.since(start).counters
+    assert counters.get("dispatch.bsr_attention.cuda_flash_wgmma") == cfg.n_layers
+    assert not [n for n in counters if n.startswith("dispatch.sdd.")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(registry, "dispatch_if_fits", lambda *a, **kw: None)
+        _, chain = tr.lm_prefill(model, prompt, cfg, 640)
+    assert testing.rel_max_error(logits, chain) <= 2 ** -5

@@ -6,7 +6,9 @@ reference ``benchmark/reference/mellum2.py``: the forward's logits,
 prefill and decode through the caches, the window's edge, YaRN's
 frequencies and factor, the top-k renormalisation, the ragged launches'
 descriptions, the windowed softmax, the benchmark cell run through the
-harness; and the MegaBlocks defaults building the leaves they built
+harness; the route of the unfused attention chain (the registry op
+bsr_attention's predicate, and on the CPU the chain with its dispatch
+counts); and the MegaBlocks defaults building the leaves they built
 before."""
 
 import dataclasses
@@ -23,11 +25,15 @@ from benchmark import harness, weights_mellum2
 from benchmark.drivers import serve_mellum2
 from benchmark.reference import mellum2 as ref
 from benchmark.tests import tiny
+from sputnik_tpu_torch import ops
 from sputnik_tpu_torch.kernels import bsr_softmax as bsm
+from sputnik_tpu_torch.kernels import flash_mha as fm
 from sputnik_tpu_torch.kernels import moe_grouped as mgk
 from sputnik_tpu_torch.models import attention, moe
 from sputnik_tpu_torch.models import transformer as tr
+from sputnik_tpu_torch.ops import registry
 from sputnik_tpu_torch.ops import softmax as ops_softmax
+from sputnik_tpu_torch.utils import tracing
 
 SEED = 2**31 + 1818
 FULL = json.loads((tiny.BENCH / "configs" / "mellum2-12b-a2.5b.json").read_text())
@@ -246,3 +252,80 @@ def test_megablocks_defaults_build_the_same_leaves(cfg):
     params = dict(lm.named_parameters())
     assert all(torch.equal(params[n].detach(), t.to(params[n].dtype)) for n, t in drawn.items())
     assert cfg.kv_heads == cfg.n_heads and cfg.kind(0) == "band" and cfg.moe_cfg().top_k == 1
+
+
+def _attention_problem(kind):
+    """(q, k, v, topology, causal) of a Mellum2-style prefill layer at T 256
+    (4 / 2 heads of 128, bf16, causal, host-known metadata), with the one
+    change ``kind`` names."""
+    t, dtype = 256, torch.float32 if kind == "fp32" else torch.bfloat16
+    dh = 64 if kind == "d_head_64" else 128
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype) for shape in ((4, t, dh), (2, t, dh), (2, t, dh)))
+    topo = attention.causal_block_topology(t, window_blocks=2, dtype=dtype, device="cpu")
+    if kind == "card_built":
+        topo = dataclasses.replace(topo, host_offsets=None, host_indices=None)
+    if kind in ("grad", "grad_under_no_grad"):
+        q.requires_grad_()
+    return q, k, v, topo, kind != "not_causal"
+
+
+@pytest.mark.parametrize("kind,fits", [("prefill", True), ("grad_under_no_grad", True), ("fp32", False),
+                                       ("d_head_64", False), ("not_causal", False), ("card_built", False),
+                                       ("grad", False)])
+def test_bsr_attention_predicate(monkeypatch, kind, fits):
+    """bsr_attention's kernel takes bf16 at head dim 128 under the causal
+    mask on host-known metadata while no gradient is recorded, and refuses
+    each of the rest; the device check is made to pass on the CPU, so that
+    every other condition is asked."""
+    monkeypatch.setattr(fm, "_on_cuda", lambda *a, **kw: True)
+    q, k, v, topo, causal = _attention_problem(kind)
+    with torch.no_grad() if kind == "grad_under_no_grad" else torch.enable_grad():
+        assert fm.attention_fits(q, k, v, topo, causal=causal, scale=128 ** -0.5, window=128) is fits
+
+
+def test_forced_variant_keeps_the_chain(monkeypatch):
+    """Inside forced_variant("torch_reference") the route dispatches nothing
+    even where the predicate holds: the chain runs on the forced variant."""
+    monkeypatch.setattr(fm, "_on_cuda", lambda *a, **kw: True)
+    q, k, v, topo, _ = _attention_problem("prefill")
+    kw = dict(causal=True, scale=128 ** -0.5, window=0)
+    assert fm.attention_fits(q, k, v, topo, **kw)
+    with registry.forced_variant("torch_reference"):
+        assert registry.dispatch_if_fits("bsr_attention", q, k, v, topo, **kw) is None
+
+
+def _dispatches(fn):
+    start = tracing.position()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    return out, {n: c for n, c in tracing.since(start).counters.items() if n.startswith("dispatch.")}
+
+
+@pytest.mark.parametrize("x,want", [(3, 6), (-3, None)])
+def test_dispatch_if_fits_asks_the_predicate_once(monkeypatch, x, want):
+    """dispatch_if_fits asks the predicate once a call, launches the variant
+    that takes the problem and counts that one dispatch; where none takes
+    it, it returns None and counts nothing."""
+    asked = []
+    monkeypatch.setitem(registry._REGISTRY, "_probe_op", [])
+    registry.register("_probe_op", "probe", lambda y: asked.append(y) or y > 0, lambda y: 2 * y)
+    got, counts = _dispatches(lambda: registry.dispatch_if_fits("_probe_op", x))
+    assert got == want and asked == [x]
+    assert counts == ({"dispatch._probe_op.probe": 1} if want else {})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unfused_attention_on_the_cpu_is_the_chain(dtype):
+    """On the CPU multihead_block_sparse_attention runs SDD, the softmax and
+    DSD (K, V repeated to the query heads) with the dispatches those three
+    ops count when called alone, and their bits; no bsr_attention."""
+    q, k, v, _, _ = _attention_problem("fp32" if dtype == torch.float32 else "prefill")
+    topo = attention.causal_block_topology(256, window_blocks=2, dtype=dtype, device="cpu")
+    got, counts = _dispatches(lambda: attention.multihead_block_sparse_attention(q, k, v, topo, causal=True,
+                                                                                 window=128))
+    want, chain_counts = _dispatches(lambda: ops.dsd(ops.bsr_softmax(
+        ops.sdd(q, k.repeat_interleave(2, 0), topo, transpose_b=True), scale=128 ** -0.5, causal=True, window=128),
+        v.repeat_interleave(2, 0)))
+    assert counts == chain_counts and not [n for n in counts if "bsr_attention" in n]
+    assert torch.equal(got, want)
